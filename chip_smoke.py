@@ -2,15 +2,19 @@
 """Smoke run of the PyTorch/CUDA port (redgnn_tpu_torch) on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
+(time_kernel_variants.py times other builds of the kernel at the same
+hop shapes.)
 
 Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit; TF32 off.
   2. build: compile the sorted-segment-sum kernel from csrc/ with nvcc.
   3. kernel vs plain: the kernel against its plain PyTorch version on the
      card, at the shapes of the slice's own hops (batch 50, L=3, D=48)
-     plus skewed / empty / out-of-range / kmax-overflow cases; times of
-     the kernel, the plain version and one library call, beside the
-     bound of the bytes the function must move.
+     plus skewed / empty / out-of-range / kmax-overflow / scalar-path
+     cases; per hop, the kernel's time with its inputs in L2 (as in the
+     path), with L2 flushed and with no edges, its share of the byte
+     bound, the plain version, one library call and one eager wrapper
+     call.
   4. the slice end to end: a seeded synthetic KG of the family dataset's
      size, written in the reference's file format and loaded with
      StaticKG.load; RedGNN at family width (hidden 48, attn 5, L=3, relu)
@@ -40,6 +44,7 @@ N_GRAPH_TRIPLES = 27_000         # facts + train; ~57k edges once doubled
 N_VALID, N_TEST = 2_000, 2_800
 N_BATCHES = 8                    # served batches of n_tbatch=50 queries
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+L2_FLUSH_BYTES = 256 * 2 ** 20   # read between calls: 5x the 50 MB L2
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)  # summation order differs
 
 
@@ -169,21 +174,27 @@ def topk_untied_agree(s_a, e_a, s_b, e_b, tol):
 
 # ------------------------------------------------------------- timing
 
-def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean time of ``fn`` over ``iters`` back-to-back eager calls, CUDA
-    events around them: for a small kernel this is the host's launch
-    path (Python wrapper, allocations, ctypes), not the device."""
+def call_ms(fn, rounds: int = 5, iters: int = 20,
+            warmup: int = 5) -> tuple[float, float]:
+    """(least, median) over ``rounds`` of the mean time of ``iters``
+    back-to-back eager calls of ``fn``, CUDA events around each round: for
+    a small kernel this is the host's launch path (Python wrapper,
+    allocations, ctypes), not the device. The host is shared, so a round's
+    mean varies up to 2x; the least is the path's own cost."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return min(times), float(np.median(times))
 
 
 def device_ms(fn, calls: int = 20, reps: int = 10) -> float:
@@ -214,6 +225,21 @@ def device_ms(fn, calls: int = 20, reps: int = 10) -> float:
     return start.elapsed_time(end) / (reps * calls)
 
 
+def flushed_ms(fn) -> float:
+    """Mean device time of one call of ``fn`` with its inputs evicted from
+    L2: ``device_ms`` of (read a 256 MB buffer, call) minus ``device_ms``
+    of the read alone. A read leaves L2 clean, so the call pays for its
+    own misses and not for writing back the flush."""
+    buf = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                     device="cuda")
+
+    def both():
+        buf.amax()
+        fn()
+
+    return device_ms(both) - device_ms(lambda: buf.amax())
+
+
 # ------------------------------------------------------------- phases
 
 def phase_device():
@@ -231,19 +257,42 @@ def phase_device():
     return name, smi
 
 
+def log_ptxas(text: str) -> None:
+    for line in text.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"[build] ptxas: {line.strip()}")
+
+
 def phase_build():
     from redgnn_tpu_torch import _build
 
     res = _build.build("segment_sum_sorted")
     log(f"[build] segment_sum_sorted.cu -> {os.path.relpath(res['path'])} "
         f"in {res['seconds']:.2f} s (nvcc, sm_90a)")
-    for line in res["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    log_ptxas(res["log"])
+
+
+def kernel_hops(pred, queries):
+    """[(msg, seg, dst, n_valid, n)] of each hop of one batch: the real
+    dst-sorted layout with seeded random messages; padding edges go past
+    the end (``seg``), as RelAttnLayer sends them."""
+    dev = pred.model.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    hops = []
+    for dst, valid, n in hop_inputs(pred, queries):
+        msg = torch.randn(dst.shape[0], pred.model.cfg.hidden_dim,
+                          generator=gen, device=dev)
+        msg = torch.where(valid[:, None], msg, 0.0)
+        hops.append((msg, torch.where(valid, dst, n), dst,
+                     int(valid.sum()), n))
+    return hops
 
 
 def phase_kernel(pred, queries, card):
     from redgnn_tpu_torch.ops.segment_sorted import (
+        SEGS_PER_BLOCK,
+        _launch_plan,
+        segment_sum_sorted,
         segment_sum_sorted_checked,
         segment_sum_sorted_reference,
     )
@@ -258,25 +307,28 @@ def phase_kernel(pred, queries, card):
         got, ovf = segment_sum_sorted_checked(data, ids, n, kmax, chunk, bn)
         want, want_ovf = segment_sum_sorted_reference(data, ids, n, kmax,
                                                       chunk, bn)
+        again, _ = segment_sum_sorted_checked(data, ids, n, kmax, chunk, bn)
         torch.cuda.synchronize()
         assert bool(ovf) == bool(want_ovf), (bool(ovf), bool(want_ovf))
         torch.testing.assert_close(got, want, **KERNEL_TOL)
+        assert torch.equal(got, again), "two calls gave different bits"
         max_err = max(max_err, float((got - want).abs().max()))
         return bool(ovf)
 
-    # the slice's own hops: real dst layout, random messages; padding
-    # edges go past the end, as RelAttnLayer sends them
-    hops = []
-    for dst, valid, n in hop_inputs(pred, queries):
-        msg = torch.randn(dst.shape[0], d, generator=gen, device=dev)
-        msg = torch.where(valid[:, None], msg, 0.0)
-        seg = torch.where(valid, dst, n)
+    hops = kernel_hops(pred, queries)
+    for msg, seg, _, _, n in hops:
         check(msg, seg, n)
-        hops.append((msg, seg, dst, int(valid.sum()), n))
     # hop-3 shape, kmax too small: the flag fires and tails are dropped
     msg, seg, dst, _, n = hops[-1]
     assert check(msg, seg, n, kmax=1), "kmax=1 should overflow at hop 3"
     check(msg, dst, n)  # the frontier's own dst: padding on the last row
+    # the same rows 4 bytes off alignment take the 4-byte-load path
+    buf = torch.empty(msg.numel() + 1, device=dev)
+    odd = buf[1:].view(msg.shape)
+    odd.copy_(msg)
+    assert not _launch_plan(n, d, odd.data_ptr()).vec
+    check(odd, seg, n)
+    check(msg[:, :33].contiguous(), seg, n)  # D = 33: 4-byte loads too
     # hub segments of up to 300 edges (the path's largest in-degree is
     # ~260), empty (odd) segments, out-of-range pad ids
     e = msg.shape[0]
@@ -290,25 +342,43 @@ def phase_kernel(pred, queries, card):
     check(data, ids, n, kmax=2, chunk=256, bn=64)
     log(f"[kernel] segment_sum_sorted == plain on the card at hop shapes "
         f"{[(h[0].shape[0], d, h[-1]) for h in hops]} (E, D, N) and "
-        f"skew/empty/out-of-range/kmax cases; max |diff| {max_err:.3g}")
+        f"skew/empty/out-of-range/kmax/misaligned/D=33 cases, same bits "
+        f"on a second call; max |diff| {max_err:.3g}")
 
     ms = plain = lib = bound = 0.0
+    hop_rows = []
     for i, (msg, seg, dst, n_valid, n) in enumerate(hops):
         idx = dst.long()  # in range: index_add_ raises on the rest
-        t_k = device_ms(lambda: segment_sum_sorted_checked(msg, seg, n))
+        t_k = device_ms(lambda: segment_sum_sorted(msg, seg, n))
+        t_f = flushed_ms(lambda: segment_sum_sorted(msg, seg, n))
+        # the launch with no edges: grid, prologue and zero rows only
+        t_0 = device_ms(lambda: segment_sum_sorted(msg[:0], seg[:0], n))
         t_p = device_ms(lambda: segment_sum_sorted_reference(msg, seg, n))
         t_l = device_ms(lambda: torch.zeros(n, d, device=dev).index_add_(
             0, idx, msg))
-        t_call = call_ms(lambda: segment_sum_sorted_checked(msg, seg, n))
+        t_call = call_ms(lambda: segment_sum_sorted(msg, seg, n))
+        t_chk = call_ms(lambda: segment_sum_sorted_checked(msg, seg, n))
         e = msg.shape[0]
         # rows of valid edges read once, ids read once, output written once
         b_ms = (n_valid * d * 4 + e * 4 + n * d * 4) / HBM_BYTES_PER_S * 1e3
-        log(f"[kernel] hop {i}: E={e} ({n_valid} valid) D={d} N={n}: kernel "
-            f"{t_k:.4f} ms, plain {t_p:.4f} ms, index_add_ {t_l:.4f} ms "
-            f"(device, CUDA graph); byte bound {b_ms * 1e3:.2f} us; one "
-            f"eager wrapper call {t_call:.4f} ms ({card})")
+        plan = _launch_plan(n, d, msg.data_ptr())
+        log(f"[kernel] hop {i}: E={e} ({n_valid} valid) D={d} N={n}, "
+            f"{plan.grid} blocks of {SEGS_PER_BLOCK} segments, "
+            f"vec={plan.vec}: kernel {t_k:.4f} ms with inputs in L2, "
+            f"{t_f:.4f} ms with L2 flushed, {t_0:.4f} ms with no edges; "
+            f"byte bound {b_ms * 1e3:.2f} us "
+            f"= {b_ms / t_k:.1%} of the L2-warm time, {b_ms / t_f:.1%} of "
+            f"the flushed; plain {t_p:.4f} ms, index_add_ {t_l:.4f} ms "
+            f"(device, CUDA graph); one eager wrapper call "
+            f"{t_call[0]:.4f} ms (segment_sum_sorted; median of rounds "
+            f"{t_call[1]:.4f}), {t_chk[0]:.4f} ms (segment_sum_sorted_"
+            f"checked; median {t_chk[1]:.4f}), least of 5 rounds of 20 "
+            f"calls ({card})")
+        hop_rows.append({"E": e, "valid": n_valid, "N": n, "ms": t_k,
+                         "bound_ms": b_ms, "ms_l2_flushed": t_f,
+                         "ms_no_edges": t_0, "call_ms": t_call[0]})
         ms, plain, lib, bound = ms + t_k, plain + t_p, lib + t_l, bound + b_ms
-    t_pile = device_ms(lambda: segment_sum_sorted_checked(msg, dst, n))
+    t_pile = device_ms(lambda: segment_sum_sorted(msg, dst, n))
     log(f"[kernel] hop {len(hops) - 1} with the frontier's own dst (its "
         f"{e - n_valid} padding edges all on segment {int(dst[-1])}): "
         f"kernel {t_pile:.4f} ms ({card})")
@@ -320,7 +390,8 @@ def phase_kernel(pred, queries, card):
             "replaces": "redgnn_tpu/ops/segment_pallas.py:145",
             "launches": None,  # set from the main path's run
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib,
+            "hops": hop_rows}
 
 
 def profile_batches(pred, queries, card):

@@ -1,11 +1,14 @@
 """Sorted-segment sum: the hand-written Hopper kernel and its plain version.
 
 Port of ``redgnn_tpu/ops/segment_pallas.py``. The CUDA kernel
-(``csrc/segment_sum_sorted.cu``) gives each segment's contiguous edge
-range to one warp and writes every output row once, without atomics;
-its source says what bounds it and why. ``segment_sum_sorted_reference``
-is the same function in plain PyTorch (masked ``index_add_``): tensors on
-the CPU take it, tensors on a CUDA device always launch the kernel.
+(``csrc/segment_sum_sorted.cu``) gives each block of threads a run of
+consecutive segments, splits their edges evenly among its workers and
+adds boundary partials in a fixed order, without atomics; its source says
+what bounds it and why. ``_launch_plan`` picks its grid and its load
+width. ``segment_sum_sorted_reference`` is the same function in plain
+PyTorch (masked ``index_add_``): tensors on the CPU take it, tensors on a
+CUDA device always launch the kernel. ``segment_sum_sorted_checked.launches``
+counts the kernel's launches through either entry point.
 
 The ``kmax`` contract of ``segment_sum_pallas_checked`` is kept: output
 nodes come in blocks of ``bn``, edges in chunks of ``chunk``; block j
@@ -16,13 +19,32 @@ its edges, drops the rest, and the overflow flag says it happened.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 CHUNK = 1024
 BN = 512
+# Segments a block owns: the kernel's kSegs (csrc/segment_sum_sorted.cu),
+# which sets its grid; the plan mirrors it. Timed on the H100 at the
+# serving hops (time_kernel_variants.py): 16 is as fast as or faster than
+# 4, 8, 32 and 64 there.
+SEGS_PER_BLOCK = 16
 
 _LIB = None
+
+
+class LaunchPlan(NamedTuple):
+    grid: int    # blocks; block b owns segments [16 b, 16 (b + 1))
+    vec: bool    # 16-byte loads (D % 4 == 0, data 16-byte aligned)
+
+
+def _launch_plan(n_seg: int, dim: int, data_ptr: int) -> LaunchPlan:
+    """The kernel's grid and load width for one call. The kernel splits
+    each block's edges among its workers itself, so the edge count does
+    not enter the plan."""
+    return LaunchPlan(grid=-(-n_seg // SEGS_PER_BLOCK),
+                      vec=dim % 4 == 0 and data_ptr % 16 == 0)
 
 
 def _kernel():
@@ -34,8 +56,7 @@ def _kernel():
         lib = _build.load("segment_sum_sorted")
         fn = lib.segment_sum_sorted_f32
         fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = fn
     return _LIB
@@ -102,6 +123,44 @@ def segment_sum_sorted_reference(data: torch.Tensor,
     return out[:num_segments], overflow
 
 
+def _launch(data: torch.Tensor, segment_ids: torch.Tensor,
+            num_segments: int, limit: torch.Tensor | None,
+            bn: int) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors that passed `_check` and return
+    the (N, D) sum; raises on what the kernel does not take."""
+    if not data.is_cuda:
+        raise ValueError(f"unsupported device {data.device}")
+    if data.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "the sorted-segment-sum kernel has no backward yet")
+    if data.dtype != torch.float32:
+        data = data.to(torch.float32)
+    if not (data.is_contiguous() and segment_ids.is_contiguous()):
+        raise ValueError("segment sum wants contiguous data and segment_ids")
+    n_edges, dim = data.shape
+    out = data.new_empty((num_segments, dim))
+    if num_segments == 0 or dim == 0:
+        return out
+    ptr = data.data_ptr()
+    args = (ptr, segment_ids.data_ptr(),
+            None if limit is None else limit.data_ptr(), out.data_ptr(),
+            n_edges, dim, num_segments, bn,
+            int(_launch_plan(num_segments, dim, ptr).vec))
+    fn = _kernel()
+    index = data.get_device()
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:  # the kernel launches on the current device
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
+    if err != 0:  # a failed launch, or arguments the C entry point refuses
+        raise RuntimeError(f"segment_sum_sorted kernel launch failed or was "
+                           f"refused ({n_edges} edges): cudaError {err}")
+    segment_sum_sorted_checked.launches += 1
+    return out
+
+
 def segment_sum_sorted_checked(data: torch.Tensor, segment_ids: torch.Tensor,
                                num_segments: int, kmax: int | None = None,
                                chunk: int = CHUNK, bn: int = BN):
@@ -120,33 +179,10 @@ def segment_sum_sorted_checked(data: torch.Tensor, segment_ids: torch.Tensor,
     if data.device.type == "cpu":
         return segment_sum_sorted_reference(data, segment_ids, num_segments,
                                             kmax, chunk, bn)
-    if data.device.type != "cuda":
-        raise ValueError(f"unsupported device {data.device}")
     _check(data, segment_ids, num_segments)
-    if data.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the sorted-segment-sum kernel has no backward yet")
-    data = data.to(torch.float32)
-    if not (data.is_contiguous() and segment_ids.is_contiguous()):
-        raise ValueError("segment sum wants contiguous data and segment_ids")
     limit, overflow = _block_limits(segment_ids, num_segments, kmax,
                                     chunk, bn)
-    n_edges, dim = data.shape
-    out = torch.empty((num_segments, dim), dtype=torch.float32,
-                      device=data.device)
-    if num_segments == 0 or dim == 0:
-        return out, overflow
-    fn = _kernel()
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = fn(data.data_ptr(), segment_ids.data_ptr(),
-                 None if limit is None else limit.data_ptr(),
-                 out.data_ptr(), n_edges, dim, num_segments, bn, stream)
-    if err != 0:
-        raise RuntimeError(f"segment_sum_sorted kernel launch failed: "
-                           f"cudaError {err}")
-    segment_sum_sorted_checked.launches += 1
-    return out, overflow
+    return _launch(data, segment_ids, num_segments, limit, bn), overflow
 
 
 segment_sum_sorted_checked.launches = 0
@@ -154,5 +190,11 @@ segment_sum_sorted_checked.launches = 0
 
 def segment_sum_sorted(data: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
-    """`segment_sum_pallas`: the sum without the overflow flag, no kmax."""
-    return segment_sum_sorted_checked(data, segment_ids, num_segments)[0]
+    """`segment_sum_pallas`: the sum without the overflow flag, no kmax.
+    The serving path's call: on the card it launches the kernel and builds
+    nothing else."""
+    if data.device.type == "cpu":
+        return segment_sum_sorted_reference(data, segment_ids,
+                                            num_segments)[0]
+    _check(data, segment_ids, num_segments)
+    return _launch(data, segment_ids, num_segments, None, BN)

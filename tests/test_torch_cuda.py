@@ -15,6 +15,7 @@ from redgnn_tpu_torch.graph.calibrate import FrontierCaps
 from redgnn_tpu_torch.graph.kg import DeviceGraph, build_csr
 from redgnn_tpu_torch.models.redgnn import ModelConfig, RedGNN
 from redgnn_tpu_torch.ops.segment_sorted import (
+    segment_sum_sorted,
     segment_sum_sorted_checked,
     segment_sum_sorted_reference,
 )
@@ -63,6 +64,74 @@ def test_kernel_matches_plain(card, kind, e, d, n, kmax):
     # no atomics: the kernel gives the same bits run to run
     again, _ = segment_sum_sorted_checked(x, s, n, kmax=kmax, chunk=256,
                                           bn=64)
+    assert torch.equal(got, again)
+
+
+def _boundary_ids(rng, kind, e, n):
+    if kind == "spans_shares":
+        # block 0 (segments 0-15 at this n): segment 3 holds hundreds of
+        # edges across many workers' shares, its neighbours a few each;
+        # block 1: segment 20 alone holds the block's whole edge range
+        seg = np.concatenate([rng.integers(0, 16, e // 4), np.full(e // 2, 3),
+                              np.full(e - e // 4 - e // 2, 20)])
+    elif kind == "one_segment":  # every edge on one segment
+        seg = np.full(e, n // 2)
+    elif kind == "sparse":  # N >> E: mostly empty segments
+        seg = rng.integers(0, n, e)
+    elif kind == "all_out_of_range":
+        seg = np.where(rng.random(e) < 0.5, rng.integers(-30, 0, e),
+                       rng.integers(n, n + 30, e))
+    else:  # "negative_first": negative ids, then in-range ones
+        seg = np.concatenate([rng.integers(-30, 0, e // 3),
+                              rng.integers(0, n, e - e // 3)])
+    return np.sort(seg).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind,e,n", [
+    ("spans_shares", 3000, 64), ("one_segment", 20000, 10),
+    ("sparse", 500, 200_000), ("all_out_of_range", 2000, 300),
+    ("negative_first", 3000, 700),
+])
+@pytest.mark.parametrize("d", [48, 33])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_kernel_boundaries(card, kind, e, n, d, misaligned):
+    rng = np.random.default_rng(0)
+    # multiples of 1/8 below 8: every partial sum of 20k of them is exact
+    # in fp32, so any summation order gives the plain version's bits and
+    # a difference can only be a wrong partition of the edges
+    x = torch.from_numpy(
+        (rng.integers(-64, 64, size=(e + 1, d)) / 8).astype(np.float32))
+    x = x.to(card)
+    # x[1:] starts 4*d bytes in: 16-byte aligned only when d % 4 == 0, so
+    # the D = 48 case is shifted by one float to leave the vector path
+    data = (x.view(-1)[1:1 + e * d].view(e, d) if misaligned and d % 4 == 0
+            else x[1:] if misaligned else x[:e])
+    s = torch.from_numpy(_boundary_ids(rng, kind, e, n)).to(card)
+    got, _ = segment_sum_sorted_checked(data, s, n)
+    want, _ = segment_sum_sorted_reference(data, s, n)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, segment_sum_sorted(data, s, n))
+
+
+@pytest.mark.parametrize("kmax", [1, 2, 3])
+@pytest.mark.parametrize("d", [48, 33])
+def test_kernel_kmax_block_not_dividing(card, kmax, d):
+    # bn = 24 segments per kmax block against the kernel's 16 per block
+    rng = np.random.default_rng(2)
+    e, n = 6000, 5000
+    x = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32)).to(card)
+    ids = np.sort(np.concatenate([rng.integers(0, 60, 3000),
+                                  rng.integers(0, n + 40, e - 3000)]))
+    s = torch.from_numpy(ids.astype(np.int32)).to(card)
+    got, ovf = segment_sum_sorted_checked(x, s, n, kmax=kmax, chunk=64, bn=24)
+    want, want_ovf = segment_sum_sorted_reference(x, s, n, kmax=kmax,
+                                                  chunk=64, bn=24)
+    torch.cuda.synchronize()
+    assert bool(ovf) == bool(want_ovf)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    again, _ = segment_sum_sorted_checked(x, s, n, kmax=kmax, chunk=64,
+                                          bn=24)
     assert torch.equal(got, again)
 
 

@@ -18,6 +18,9 @@ from redgnn_tpu.ops.segment_pallas import (
 )
 from redgnn_tpu_torch.ops.segment import segment_sum
 from redgnn_tpu_torch.ops.segment_sorted import (
+    SEGS_PER_BLOCK,
+    _launch,
+    _launch_plan,
     segment_sum_sorted,
     segment_sum_sorted_checked,
     segment_sum_sorted_reference,
@@ -34,6 +37,10 @@ def _case(rng, kind, e, d, n):
         # one hub segment takes most edges, many segments stay empty
         seg = np.sort(np.where(rng.random(e) < 0.7, 7,
                                rng.integers(0, n, e)))
+    elif kind == "negative":  # negative ids first, dropped like the rest
+        seg = np.sort(rng.integers(-20, n + 20, e))
+    elif kind == "sparse":  # far more segments than edges
+        seg = np.sort(rng.integers(0, n, e))
     else:  # "out_of_range": pad ids past num_segments, dropped
         seg = np.sort(rng.integers(0, n + 50, e))
     return data, seg.astype(np.int32)
@@ -42,7 +49,8 @@ def _case(rng, kind, e, d, n):
 @pytest.mark.parametrize("kind,e,d,n", [
     ("random", 512, 48, 128), ("random", 1000, 16, 300),
     ("random", 256, 128, 50), ("skewed", 512, 32, 256),
-    ("out_of_range", 256, 8, 64),
+    ("out_of_range", 256, 8, 64), ("negative", 300, 33, 40),
+    ("sparse", 64, 48, 2000),
 ])
 def test_matches_pallas(rng, kind, e, d, n):
     data, seg = _case(rng, kind, e, d, n)
@@ -114,3 +122,39 @@ def test_wrapper_rejects_bad_inputs(rng):
     with pytest.raises(ValueError):
         segment_sum_sorted(data, torch.zeros(9, dtype=torch.int32), 3)
 
+
+@pytest.mark.parametrize("n_seg", [1, 15, 16, 17, 2048, 8704, 9984, 70_000,
+                                   1_000_000, 2 ** 31 - 2])
+def test_launch_plan_covers_every_segment_once(n_seg):
+    plan = _launch_plan(n_seg, 48, 0)
+    # block b owns [b*segs, min((b+1)*segs, n_seg)): consecutive, disjoint,
+    # each non-empty, the last one ending at n_seg
+    los = np.arange(plan.grid, dtype=np.int64) * SEGS_PER_BLOCK
+    his = np.minimum(los + SEGS_PER_BLOCK, n_seg)
+    assert los[0] == 0 and his[-1] == n_seg
+    assert np.all(los < his) and np.all(los[1:] == his[:-1])
+
+
+@pytest.mark.parametrize("dim", [48, 33, 4, 1, 128, 100])
+@pytest.mark.parametrize("offset", [0, 4, 8, 12, 16, 256])
+def test_launch_plan_vector_path(dim, offset):
+    ptr = 0x7F0000000000 + offset
+    vec = _launch_plan(100, dim, ptr).vec
+    assert vec == (dim % 4 == 0 and offset % 16 == 0)
+
+
+def test_launch_plan_of_misaligned_view():
+    # the card tests' misaligned case: rows of 33 floats, one row in
+    x = torch.zeros(11, 33)
+    assert _launch_plan(5, 33, x[1:].data_ptr()).vec is False
+    y = torch.zeros(11 * 48 + 1)[1:].view(11, 48)
+    assert y.data_ptr() % 16 != 0
+    assert _launch_plan(5, 48, y.data_ptr()).vec is False
+
+
+def test_launch_refuses_cpu_tensors():
+    # the kernel's launch path never takes a CPU tensor (no fallback there)
+    data = torch.zeros(4, 8)
+    seg = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        _launch(data, seg, 2, None, 512)

@@ -22,6 +22,20 @@ Phases (any failure raises, and the script exits non-zero):
      dense_hops=False; Predictor(split='test', top_k=10) answers batches
      of 50 queries. The launch counter must show the kernel on every hop;
      one batch's scores must equal the same model on the CPU.
+  5. training: StaticTrainer on the same KG and config (n_batch=20,
+     lr 0.0036, lamb 1.7e-5, scan_chunk=32). At the three training-hop shapes, the
+     kernel's forward (through the autograd.Function) against the plain
+     version and its backward against autograd of the plain version, bit
+     for bit; one step's loss, aux counts
+     and every parameter's gradient on the card against the CPU plain
+     path (dropout 0); then 64 steps (2 chunks) with dropout 0.29 through
+     train_epoch: 3 kernel launches per step, finite loss, every update
+     applied, parameters moved, one host read per chunk, and no
+     synchronising call inside a chunk (CUDA sync debug mode); then
+     evaluate("valid") over the whole split. Prints ms per step, true
+     propagated edges/s, eval queries/s, peak memory and a torch.profiler
+     pass over 2 steps (idle share, largest kernels, forward / backward /
+     optimizer shares of device time).
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero.
 """
@@ -46,6 +60,10 @@ N_BATCHES = 8                    # served batches of n_tbatch=50 queries
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 L2_FLUSH_BYTES = 256 * 2 ** 20   # read between calls: 5x the 50 MB L2
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)  # summation order differs
+TRAIN_STEPS, TRAIN_CHUNK = 64, 32  # phase 5: 2 chunks of scan_chunk steps
+# a parameter's gradient, card vs CPU: |diff| <= GRAD_RTOL * |cpu| +
+# GRAD_ATOL_REL * max|cpu| (sums over ~60k edges in another order)
+GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5
 
 
 def log(msg: str) -> None:
@@ -139,19 +157,16 @@ def batch_tensors(pred, queries: np.ndarray):
     return subs, rels, torch.ones(b, dtype=torch.bool, device=dev)
 
 
-def hop_inputs(pred, queries: np.ndarray):
-    """The (dst, edge_valid, node_cap) that each hop of one batch hands to
-    the segment sum: the real dst-sorted layout of the slice."""
-    from redgnn_tpu_torch.ops.frontier import SENTINEL, expand_frontier
+def hop_inputs(graph, caps, n_ent: int, n_layer: int, heads: torch.Tensor):
+    """The (dst, edge_valid, node_cap) that each hop of one batch of query
+    ``heads`` hands to the segment sum: the real dst-sorted layout."""
+    from redgnn_tpu_torch.ops.frontier import expand_frontier
 
-    g, caps, n_ent = pred.graph, pred.caps, pred.model.cfg.n_ent
-    subs, _, qmask = batch_tensors(pred, queries)
-    keys = subs + torch.arange(len(queries), dtype=torch.int32,
-                               device=subs.device) * n_ent
-    keys = torch.where(qmask, keys, SENTINEL)
+    keys = heads.to(torch.int32) + torch.arange(
+        len(heads), dtype=torch.int32, device=heads.device) * n_ent
     out = []
-    for i in range(pred.model.cfg.n_layer):
-        fr = expand_frontier(g.rowptr, g.rel, g.tail, n_ent, keys,
+    for i in range(n_layer):
+        fr = expand_frontier(graph.rowptr, graph.rel, graph.tail, n_ent, keys,
                              caps.edge_caps[i], caps.node_caps[i + 1])
         out.append((fr.dst, fr.edge_valid, caps.node_caps[i + 1]))
         keys = fr.node_keys
@@ -272,16 +287,17 @@ def phase_build():
     log_ptxas(res["log"])
 
 
-def kernel_hops(pred, queries):
+def kernel_hops(graph, caps, cfg, heads: torch.Tensor):
     """[(msg, seg, dst, n_valid, n)] of each hop of one batch: the real
     dst-sorted layout with seeded random messages; padding edges go past
     the end (``seg``), as RelAttnLayer sends them."""
-    dev = pred.model.device
+    dev = heads.device
     gen = torch.Generator(device=dev).manual_seed(SEED)
     hops = []
-    for dst, valid, n in hop_inputs(pred, queries):
-        msg = torch.randn(dst.shape[0], pred.model.cfg.hidden_dim,
-                          generator=gen, device=dev)
+    for dst, valid, n in hop_inputs(graph, caps, cfg.n_ent, cfg.n_layer,
+                                    heads):
+        msg = torch.randn(dst.shape[0], cfg.hidden_dim, generator=gen,
+                          device=dev)
         msg = torch.where(valid[:, None], msg, 0.0)
         hops.append((msg, torch.where(valid, dst, n), dst,
                      int(valid.sum()), n))
@@ -315,7 +331,8 @@ def phase_kernel(pred, queries, card):
         max_err = max(max_err, float((got - want).abs().max()))
         return bool(ovf)
 
-    hops = kernel_hops(pred, queries)
+    hops = kernel_hops(pred.graph, pred.caps, pred.model.cfg,
+                       batch_tensors(pred, queries)[0])
     for msg, seg, _, _, n in hops:
         check(msg, seg, n)
     # hop-3 shape, kmax too small: the flag fires and tails are dropped
@@ -394,11 +411,40 @@ def phase_kernel(pred, queries, card):
             "hops": hop_rows}
 
 
-def profile_batches(pred, queries, card):
-    """Device busy share and the largest kernels over a few served
-    batches (torch.profiler); prints "not measured" if the profiler sees
+def profile_report(prof, wall_us: float, n_units: int, unit: str, card):
+    """Idle share, device activities and the 8 largest kernels of a
+    torch.profiler trace over ``n_units`` batches or steps. Returns the
+    profiler's events, or None (after printing "not measured") if it saw
     no device activity."""
     from torch.autograd import DeviceType
+
+    events = prof.events()
+    # record_function ranges also show up on the device side; they are
+    # spans between launches, not work
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("step.")]
+    if not kernels:
+        log(f"[profile] device time not measured: the profiler saw no "
+            f"device activity ({card})")
+        return None
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[profile] {n_units} {unit} units: wall {wall_us / n_units:.1f} us "
+        f"per {unit} under the profiler, device busy "
+        f"{busy / n_units:.1f} us per {unit}, idle share "
+        f"{1 - busy / wall_us:.3f}; {len(kernels) // n_units} device "
+        f"activities per {unit} ({card})")
+    for name, us in top:
+        log(f"[profile]   {us / n_units:9.1f} us/{unit}  {name[:90]}")
+    return events
+
+
+def profile_batches(pred, queries, card):
+    """Device busy share and the largest kernels over a few served
+    batches (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     b = pred.batch
@@ -410,24 +456,7 @@ def profile_batches(pred, queries, card):
             pred.predict(queries[k:k + b, 0], queries[k:k + b, 1])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        log(f"[profile] device time not measured: the profiler saw no "
-            f"device activity ({card})")
-        return
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy = sum(by_name.values())
-    n_batches = -(-len(queries) // b)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"[profile] {n_batches} batches: wall {wall_us / n_batches:.1f} us "
-        f"per batch under the profiler, device busy "
-        f"{busy / n_batches:.1f} us per batch, idle share "
-        f"{1 - busy / wall_us:.3f}; {len(kernels) // n_batches} device "
-        f"activities per batch ({card})")
-    for name, us in top:
-        log(f"[profile]   {us / n_batches:9.1f} us/batch  {name[:90]}")
+    profile_report(prof, wall_us, -(-len(queries) // b), "batch", card)
 
 
 def phase_slice(kg, model, pred, queries, card):
@@ -492,6 +521,293 @@ def phase_slice(kg, model, pred, queries, card):
     return launches
 
 
+# ------------------------------------------------------- phase 5: training
+
+def train_config(dropout: float):
+    from redgnn_tpu_torch.utils.config import dataset_config
+
+    return dataset_config("static_transductive", "family",
+                          segment_impl="pallas", dense_hops=False,
+                          scan_chunk=TRAIN_CHUNK, dropout=dropout)
+
+
+def make_trainer(data_dir: str, device: str, dropout: float):
+    """A StaticTrainer of the family config on the first TRAIN_STEPS
+    batches of the synthetic KG's training queries."""
+    from redgnn_tpu_torch.graph.kg import StaticKG
+    from redgnn_tpu_torch.train.loop import StaticTrainer
+
+    cfg = train_config(dropout)
+    kg = StaticKG.load(data_dir, device=device)
+    kg.train_data = kg.train_data[:TRAIN_STEPS * cfg.n_batch]
+    return StaticTrainer(kg, cfg)
+
+
+def exact_train_caps(trainer):
+    return trainer._recalibrate_exact(
+        trainer.train_caps, trainer.kg.graph_np, trainer.kg.train_data,
+        trainer.cfg.n_batch)
+
+
+def step_tensors(trainer, step: int):
+    b, dev = trainer.cfg.n_batch, trainer.device
+    d = trainer.kg.train_data[step * b:(step + 1) * b]
+    subs, rels, objs = (torch.as_tensor(d[:, k], dtype=torch.int32,
+                                        device=dev) for k in range(3))
+    return subs, rels, objs, torch.ones(b, dtype=torch.bool, device=dev)
+
+
+def kernel_train_hops_check(trainer, caps, card):
+    """The kernel at the three training-hop shapes (padding ids lie past
+    the end), on the card: the forward launch of the autograd.Function
+    against the plain version (KERNEL_TOL), and its backward against
+    autograd of the plain version (both are gathers, so bit for bit).
+    Returns per-hop rows with the forward's error and the device times of
+    the forward, the plain version, ``index_add_`` and the backward."""
+    from redgnn_tpu_torch.ops.segment_sorted import (
+        _gather_grad,
+        segment_sum_sorted,
+        segment_sum_sorted_reference,
+    )
+
+    dev = trainer.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    hops = kernel_hops(trainer.kg.graph, caps, trainer.model_cfg,
+                       step_tensors(trainer, 0)[0])
+    rows = []
+    for i, (msg, seg, dst, n_valid, n) in enumerate(hops):
+        assert int((seg >= n).sum()) == msg.shape[0] - n_valid
+        g = torch.randn(n, msg.shape[1], generator=gen, device=dev)
+        outs, grads = [], []
+        for fn in (segment_sum_sorted,
+                   lambda x, s, k: segment_sum_sorted_reference(x, s, k)[0]):
+            x = msg.clone().requires_grad_()
+            out = fn(x, seg, n)
+            # a non-contiguous output gradient, as a transposed matmul
+            # operand would hand it over
+            out.backward(g.T.contiguous().T)
+            outs.append(out.detach())
+            grads.append(x.grad)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(outs[0], outs[1], **KERNEL_TOL)
+        err = float((outs[0] - outs[1]).abs().max())
+        assert torch.equal(grads[0], grads[1]), f"hop {i}: backward differs"
+        assert bool((grads[0][seg >= n] == 0).all())
+        idx = dst.long()  # in range: index_add_ raises on the rest
+        t_f = device_ms(lambda: segment_sum_sorted(msg, seg, n))
+        t_p = device_ms(lambda: segment_sum_sorted_reference(msg, seg, n))
+        t_l = device_ms(lambda: torch.zeros(
+            n, msg.shape[1], device=dev).index_add_(0, idx, msg))
+        t_b = device_ms(lambda: _gather_grad(g, seg, n))
+        e, d = msg.shape
+        # forward: rows of valid edges read, ids read, output written;
+        # backward: g read once, ids read, d_data written
+        f_ms = (n_valid * d * 4 + e * 4 + n * d * 4) / HBM_BYTES_PER_S * 1e3
+        b_ms = (n * d * 4 + e * 4 + e * d * 4) / HBM_BYTES_PER_S * 1e3
+        log(f"[train] hop {i} (E={e}, {n_valid} valid, D={d}, N={n}): "
+            f"forward kernel == plain, max |diff| {err:.3g} (rtol "
+            f"{KERNEL_TOL['rtol']}, atol {KERNEL_TOL['atol']}); kernel "
+            f"backward == plain autograd bit for bit; forward kernel "
+            f"{t_f:.4f} ms (byte bound {f_ms * 1e3:.2f} us, plain "
+            f"{t_p:.4f} ms, index_add_ {t_l:.4f} ms), backward gather "
+            f"{t_b:.4f} ms (byte bound {b_ms * 1e3:.2f} us) (device, CUDA "
+            f"graph, L2-warm) ({card})")
+        rows.append({"E": e, "valid": n_valid, "N": n, "max_abs_err": err,
+                     "fwd_ms": t_f, "fwd_bound_ms": f_ms, "plain_ms": t_p,
+                     "library_ms": t_l, "bwd_ms": t_b, "bwd_bound_ms": b_ms})
+    log(f"[train] per step ({len(rows)} hops): forward kernel "
+        f"{sum(r['fwd_ms'] for r in rows):.4f} ms (byte bound "
+        f"{sum(r['fwd_bound_ms'] for r in rows) * 1e3:.2f} us, plain "
+        f"{sum(r['plain_ms'] for r in rows):.4f} ms, index_add_ "
+        f"{sum(r['library_ms'] for r in rows):.4f} ms), backward gather "
+        f"{sum(r['bwd_ms'] for r in rows):.4f} ms (byte bound "
+        f"{sum(r['bwd_bound_ms'] for r in rows) * 1e3:.2f} us) ({card})")
+    return rows
+
+
+def step_card_vs_cpu(data_dir: str, gpu, caps):
+    """One step's loss, aux counts and every parameter's gradient on the
+    card against the CPU plain path: same seed (same parameters), same
+    batch, dropout 0."""
+    from redgnn_tpu_torch.train.loop import softmax_ce_loss
+
+    cpu = make_trainer(data_dir, "cpu", dropout=0.0)
+    out = {}
+    for name, tr in (("cpu", cpu), ("cuda", gpu)):
+        subs, rels, objs, qmask = step_tensors(tr, 0)
+        scores, aux = tr.model(tr.kg.graph, subs, rels, qmask, caps)
+        loss = softmax_ce_loss(scores, objs, qmask)
+        grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+        out[name] = (float(loss.detach()), {k: v.cpu() for k, v in aux.items()},
+                     [g.cpu() for g in grads])
+    (l_c, aux_c, g_c), (l_g, aux_g, g_g) = out["cpu"], out["cuda"]
+    assert abs(l_g - l_c) <= 1e-5 * abs(l_c), (l_g, l_c)
+    for k in aux_c:
+        assert torch.equal(aux_g[k], aux_c[k]), k
+    worst, nonzero = 0.0, 0
+    for (name, _), a, b in zip(cpu.model.named_parameters(), g_g, g_c):
+        scale = float(b.abs().max())
+        err = float(((a - b).abs() - GRAD_RTOL * b.abs()).max())
+        assert err <= GRAD_ATOL_REL * scale, (name, err, scale)
+        if scale > 0:  # hop 0 starts from zero states: W_s gets no gradient
+            nonzero += 1
+            worst = max(worst, float((a - b).abs().max()) / scale)
+    assert nonzero >= len(g_c) - 1, nonzero
+    log(f"[train] one step, card vs CPU (dropout 0): loss {l_g:.6f} vs "
+        f"{l_c:.6f} (rtol 1e-5); aux counts equal, num_edges "
+        f"{aux_c['num_edges'].tolist()}; {len(g_c)} parameter gradients "
+        f"within rtol {GRAD_RTOL} + {GRAD_ATOL_REL} * max|grad|, worst "
+        f"max|diff| / max|grad| {worst:.3g}")
+    return int(aux_c["num_edges"].sum())
+
+
+def profile_steps(trainer, caps, card):
+    """torch.profiler over 2 steps: idle share, largest kernels, and the
+    device time of the kernels launched inside each of the trainer's
+    record_function ranges (forward / backward / optimizer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = torch.stack([torch.stack(
+        [t.to(torch.int32) for t in step_tensors(trainer, k)])
+        for k in range(2)])
+    trainer._run_chunk(batches, caps)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._run_chunk(batches, caps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = profile_report(prof, wall_us, 2, "step", card)
+    if events is None:
+        return
+    phases = ("step.forward", "step.backward", "step.optimizer")
+    ranges = [(e.name, e.time_range.start, e.time_range.end)
+              for e in events
+              if e.name in phases and e.device_type == DeviceType.CPU]
+    host = dict.fromkeys(phases, 0.0)
+    for name, lo, hi in ranges:
+        host[name] += hi - lo
+    log("[profile] host time by range of the step, under the profiler: "
+        + ", ".join(f"{n.split('.')[1]} {host[n] / 2:.1f} us/step"
+                    for n in phases) + f" ({card})")
+    share = dict.fromkeys(phases, 0.0)
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        for name, lo, hi in ranges:
+            if lo <= e.time_range.start <= hi:
+                share[name] += sum(k.duration for k in e.kernels)
+                break
+    total = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == DeviceType.CUDA
+                and e.name not in phases)
+    seen = sum(share.values())
+    if seen < 0.5 * total:
+        log(f"[profile] forward / backward / optimizer shares not "
+            f"measured: only {seen:.0f} of {total:.0f} us of device time "
+            f"could be tied to a range ({card})")
+        return
+    log("[profile] device time by range of the step (kernels tied to the "
+        "op that launched them; "
+        f"{seen / total:.1%} of the device time tied): "
+        + ", ".join(f"{n.split('.')[1]} {share[n] / seen:.3f} "
+                    f"({share[n] / 2:.1f} us/step)" for n in phases)
+        + f" ({card})")
+
+
+def phase_train(data_dir: str, card):
+    """Phase 5; returns (kernel launches on the training path, per-hop
+    forward / backward rows of the kernel at the training shapes)."""
+    from redgnn_tpu_torch.graph.calibrate import per_query_counts
+    from redgnn_tpu_torch.ops.segment_sorted import segment_sum_sorted_checked
+
+    plain = make_trainer(data_dir, "cuda", dropout=0.0)
+    caps = exact_train_caps(plain)
+    cfg = plain.cfg
+    assert (cfg.hidden_dim, cfg.attn_dim, cfg.n_layer, cfg.n_batch) == \
+        (48, 5, 3, 20)
+    log(f"[train] {TRAIN_STEPS} steps of n_batch={cfg.n_batch}, lr {cfg.lr},"
+        f" lamb {cfg.lamb}, decay {cfg.decay_rate}, scan_chunk "
+        f"{cfg.scan_chunk}; exact caps node {caps.node_caps} edge "
+        f"{caps.edge_caps}")
+    hop_rows = kernel_train_hops_check(plain, caps, card)
+    edges_step0 = step_card_vs_cpu(data_dir, plain, caps)
+
+    trainer = make_trainer(data_dir, "cuda", dropout=0.29)
+    kg = trainer.kg
+    nc, ec = per_query_counts(kg.graph_np[0], kg.graph_np[2], kg.n_ent,
+                              kg.train_data[:, 0], cfg.n_layer)
+    assert int(ec[:cfg.n_batch].sum()) == edges_step0
+    true_edges = int(ec.sum())
+
+    # no call inside a chunk may synchronise with the device
+    batches = torch.stack([torch.stack(
+        [t.to(torch.int32) for t in step_tensors(trainer, k)])
+        for k in range(4)])
+    snap = trainer._snapshot()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer._run_chunk(batches, caps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    trainer._rollback(snap)
+
+    trainer.train_epoch(0)  # warm-up epoch: allocator, cuBLAS handles
+    trainer.timer.enabled = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flat0 = trainer._flat.clone()
+    count0, syncs0 = int(trainer.opt_state["count"]), trainer.host_syncs
+    segment_sum_sorted_checked.launches = 0
+    t0 = time.perf_counter()
+    loss = trainer.train_epoch(1)  # ends in a device-to-host read
+    epoch_s = time.perf_counter() - t0
+    # the chunk loop alone (PhaseTimer); the rest is the exact-cap walk
+    seconds = trainer.timer.buckets["train"]["device"]
+    launches = segment_sum_sorted_checked.launches
+    peak = torch.cuda.max_memory_allocated()
+    applied = int(trainer.opt_state["count"]) - count0
+    syncs = trainer.host_syncs - syncs0
+    assert launches == cfg.n_layer * TRAIN_STEPS, launches
+    assert np.isfinite(loss) and loss > 0, loss
+    assert applied == TRAIN_STEPS, applied
+    assert syncs == TRAIN_STEPS // TRAIN_CHUNK, syncs
+    assert not torch.equal(trainer._flat, flat0)
+    assert bool(torch.isfinite(trainer._flat).all())
+    assert trainer.train_caps == caps
+    log(f"[train] {TRAIN_STEPS} steps through train_epoch (dropout 0.29): "
+        f"{seconds / TRAIN_STEPS * 1e3:.3f} ms per step, "
+        f"{true_edges / seconds:.1f} true propagated edges/s "
+        f"({true_edges} edges over the steps' hops; chunk loop "
+        f"{seconds:.3f} s of the epoch's {epoch_s:.3f} s, the rest is the "
+        f"host's exact-cap walk), loss sum {loss:.2f}; "
+        f"{launches} kernel launches (= {cfg.n_layer} x {TRAIN_STEPS}), "
+        f"{applied} updates applied, {syncs} host reads "
+        f"(1 per chunk of {TRAIN_CHUNK}), no synchronising call inside a "
+        f"chunk; max_memory_allocated {peak} B ({card})")
+
+    spec = kg.eval_spec("valid")
+    n_answers = sum(len(a) for a in spec.answers)
+    trainer.evaluate("valid")  # calibrates the split's caps, warms up
+    t0 = time.perf_counter()
+    m = trainer.evaluate("valid")
+    seconds = time.perf_counter() - t0
+    assert m["n"] == n_answers, (m["n"], n_answers)
+    assert all(0.0 <= m[k] <= 1.0 for k in ("mrr", "h1", "h3", "h10")), m
+    assert m["h1"] <= m["h3"] <= m["h10"]
+    log(f"[train] evaluate('valid'): {len(spec.queries)} grouped queries, "
+        f"{n_answers} answers ranked, MRR {m['mrr']:.4f} H@1 {m['h1']:.4f} "
+        f"H@10 {m['h10']:.4f} (random weights after {2 * TRAIN_STEPS} "
+        f"steps); {seconds:.3f} s, {len(spec.queries) / seconds:.1f} "
+        f"queries/s in batches of {cfg.n_tbatch} ({card})")
+    profile_steps(trainer, caps, card)
+    return launches, hop_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script "
@@ -503,9 +819,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         write_synthetic_kg(tmp)
         kg, _, model, pred = build_slice(tmp, "cuda")
-    queries = serving_queries(kg, N_BATCHES * pred.batch)
-    kernel = phase_kernel(pred, queries[:pred.batch], card)
-    kernel["launches"] = phase_slice(kg, model, pred, queries, card)
+        queries = serving_queries(kg, N_BATCHES * pred.batch)
+        kernel = phase_kernel(pred, queries[:pred.batch], card)
+        kernel["launches"] = phase_slice(kg, model, pred, queries, card)
+        kernel["train_launches"], kernel["train_hops"] = phase_train(tmp,
+                                                                     card)
+    kernel["max_abs_err"] = max([kernel["max_abs_err"]] + [
+        r["max_abs_err"] for r in kernel["train_hops"]])
     log(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

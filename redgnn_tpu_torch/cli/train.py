@@ -1,0 +1,158 @@
+"""Training CLI of the port (static transductive task).
+
+    python -m redgnn_tpu_torch.cli.train --task transductive \
+        --data_path <dir with entities.txt, relations.txt, facts.txt, ...>
+
+Port of ``redgnn_tpu/cli/train.py``. Per-dataset tuned hyperparameters
+load from the config registry (`redgnn_tpu_torch.utils.config`, keyed by
+the directory's name); any field can be overridden with
+``--set field=value``. The run happens on ``--device`` (default ``cuda``,
+which raises without a card; ``--device cpu`` trains on the host). The
+first line printed is the resolved config as JSON, the last one
+``BEST {...}``.
+
+Not ported yet (each exits with a message): the inductive,
+interpolation and extrapolation tasks, ``--model xerte|simple``,
+``--mesh``, ``--distributed``, ``--hpo``, ``--eval_splits``,
+``--sqlite`` / ``--results_dir`` logging and ``--attention_stats``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+
+
+def parse_overrides(pairs, cfg):
+    for pair in pairs or []:
+        key, _, raw = pair.partition("=")
+        if not hasattr(cfg, key):
+            raise SystemExit(f"unknown config field: {key}")
+        cur = getattr(cfg, key)
+        if isinstance(cur, bool):
+            val = raw.lower() in ("1", "true", "yes")
+        elif isinstance(cur, int):
+            val = int(raw)
+        elif isinstance(cur, float):
+            val = float(raw)
+        elif cur is None:
+            # Optional fields: infer numeric types from the literal
+            if raw.lower() in ("none", "null"):
+                val = None
+            else:
+                try:
+                    val = int(raw)
+                except ValueError:
+                    try:
+                        val = float(raw)
+                    except ValueError:
+                        val = raw
+        else:
+            val = raw
+        cfg = dataclasses.replace(cfg, **{key: val})
+    return cfg
+
+
+def _refuse_unported(args) -> None:
+    unported = {
+        f"--task {args.task}": args.task != "transductive",
+        f"--model {args.model}": args.model != "redgnn",
+        "--mesh": args.mesh is not None,
+        "--distributed": args.distributed,
+        "--hpo": args.hpo is not None,
+        "--eval_splits": args.eval_splits is not None,
+        "--sqlite": args.sqlite is not None,
+        "--results_dir": args.results_dir is not None,
+        "--attention_stats": args.attention_stats is not None,
+    }
+    asked = [name for name, given in unported.items() if given]
+    if asked:
+        raise SystemExit(f"{', '.join(asked)}: not ported yet (the PyTorch "
+                         "port trains the static transductive task on one "
+                         "device; use redgnn_tpu.cli.train for the rest)")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="redgnn_tpu_torch trainer")
+    p.add_argument("--task", required=True,
+                   choices=["transductive", "inductive", "interpolation",
+                            "extrapolation"])
+    p.add_argument("--model", default="redgnn",
+                   choices=["redgnn", "xerte", "simple"])
+    p.add_argument("--data_path", required=True)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--ckpt_dir", default=None)
+    p.add_argument("--load_checkpoint", default=None)
+    p.add_argument("--resume_latest", action="store_true",
+                   help="resume from <ckpt_dir>/latest.pt if present")
+    p.add_argument("--eval_only", action="store_true")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--set", nargs="*", metavar="FIELD=VALUE",
+                   help="override any config field")
+    p.add_argument("--timer", action="store_true",
+                   help="per-epoch phase wall-clock buckets")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the run (default cuda; cpu trains "
+                        "on the host)")
+    for flag in ("--results_dir", "--eval_splits", "--sqlite", "--mesh",
+                 "--attention_stats"):
+        p.add_argument(flag, default=None, help="not ported yet")
+    p.add_argument("--hpo", type=int, default=None, help="not ported yet")
+    p.add_argument("--distributed", action="store_true",
+                   help="not ported yet")
+    args = p.parse_args(argv)
+    _refuse_unported(args)
+
+    import torch
+
+    from redgnn_tpu_torch.graph.kg import StaticKG
+    from redgnn_tpu_torch.train.loop import StaticTrainer
+    from redgnn_tpu_torch.utils.checkpoint import EXT, load_latest
+    from redgnn_tpu_torch.utils.config import dataset_config
+
+    # the port's arithmetic is fp32 throughout (see ops/gather.py)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    dataset = os.path.basename(args.data_path.rstrip("/"))
+    cfg = dataset_config("static_transductive", dataset)
+    if args.seed is not None:
+        cfg = dataclasses.replace(cfg, seed=args.seed)
+    cfg = parse_overrides(args.set, cfg)
+    kg = StaticKG.load(args.data_path, device=args.device)
+    trainer = StaticTrainer(kg, cfg)
+    print(json.dumps(dataclasses.asdict(cfg)))
+    trainer.timer.enabled = args.timer
+
+    start_epoch = 0
+    if args.load_checkpoint:
+        epoch = trainer.restore(args.load_checkpoint)
+        print(f"restored checkpoint from epoch {epoch}")
+    elif args.resume_latest and args.ckpt_dir:
+        try:
+            latest = load_latest(args.ckpt_dir, trainer.state())
+        except ValueError as e:  # e.g. a checkpoint of another model shape
+            print(f"latest checkpoint incompatible ({e}); starting fresh")
+            latest = None
+        if latest is not None:
+            state, start_epoch, _ = latest
+            trainer.load_state(state)
+            # rng of the re-split from the JSON sidecar
+            trainer.restore_host(os.path.join(args.ckpt_dir, "latest" + EXT))
+            print(f"resuming from latest checkpoint at epoch {start_epoch}")
+
+    if args.eval_only:
+        vm = trainer.evaluate("valid")
+        tm = trainer.evaluate("test")
+        print(json.dumps({"valid": vm, "test": tm}, default=float))
+        return
+
+    best = trainer.fit(epochs=args.epochs, ckpt_dir=args.ckpt_dir,
+                       start_epoch=start_epoch)
+    print("BEST", json.dumps(best, default=float))
+
+
+if __name__ == "__main__":
+    main()

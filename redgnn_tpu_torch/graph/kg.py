@@ -160,6 +160,18 @@ def group_queries(
     return queries, answers
 
 
+def filters_of(
+    *triple_sets: np.ndarray,
+) -> Dict[Tuple[int, int], np.ndarray]:
+    """(h, r) -> sorted known-true tails over the given (already-doubled)
+    triple sets, for filtered ranking (`load_data.py:170-192`)."""
+    filt: Dict[Tuple[int, int], set] = defaultdict(set)
+    for triples in triple_sets:
+        for h, r, t in triples:
+            filt[(int(h), int(r))].add(int(t))
+    return {k: np.array(sorted(v)) for k, v in filt.items()}
+
+
 @dataclass
 class EvalSpec:
     """What evaluating or serving one split needs: the graph to propagate
@@ -171,6 +183,9 @@ class EvalSpec:
     graph_np: Tuple[np.ndarray, np.ndarray, np.ndarray]
     n_ent: int
     filters: Dict[Tuple[int, int], np.ndarray]
+
+    def filter_row(self, h: int, r: int) -> np.ndarray:
+        return self.filters.get((int(h), int(r)), np.empty(0, dtype=np.int64))
 
 
 @dataclass
@@ -268,6 +283,20 @@ class StaticKG:
         self.graph_np = build_csr(g, self.n_ent)
         self.graph = DeviceGraph.from_csr(*self.graph_np, self.n_ent,
                                           device=self.device)
+
+    def resplit(self, rng: np.random.Generator) -> None:
+        """Per-epoch random 3:1 facts/train re-split
+        (`load_data.py:152-164`); the new graph goes to the KG's device.
+        Shapes stay constant (the cut depends on the pool size only)."""
+        pool = np.concatenate([self.fact, self.train], 0)
+        perm = rng.permutation(len(pool))
+        pool = pool[perm]
+        cut = len(pool) * 3 // 4
+        self._set_graph(pool[:cut], pool[cut:])
+
+    def filter_row(self, h: int, r: int) -> np.ndarray:
+        """Known-true tails for (h, r) across all splits (for filtered MRR)."""
+        return self.filters.get((h, r), np.empty(0, dtype=np.int64))
 
     def eval_queries(
         self, split: str

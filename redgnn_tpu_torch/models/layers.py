@@ -80,7 +80,17 @@ class RelAttnLayer(nn.Module):
             frontier.src, frontier.dst, frontier.rel, frontier.batch,
             frontier.edge_valid,
         )
-        hs = hidden_prev[src.long()]                       # (E, D)
+        # The frontier gives every padding edge the last frontier slot as
+        # src. Their messages are masked below, so the row they read does
+        # not matter, but the gather's backward
+        # (index_put_(accumulate=True): equal indices are added one after
+        # another by one warp) would walk thousands of them in a row.
+        # Spread them over the rows instead; nothing that leaves the layer
+        # changes.
+        spread = torch.arange(src.shape[0], device=src.device) \
+            % hidden_prev.shape[0]
+        src = torch.where(valid, src.long(), spread)
+        hs = hidden_prev[src]                              # (E, D)
         hr = take_rows(self.rela_embed, rel)               # (E, D)
         h_qr = take_rows(take_rows(self.rela_embed, q_rel), batch)
 

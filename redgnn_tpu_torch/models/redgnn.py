@@ -1,13 +1,15 @@
 """RED-GNN: query-dependent relational digraph propagation.
 
-Port of ``redgnn_tpu/models/redgnn.py`` (sparse hops, inference). The
-L-hop loop — expansion, attention, aggregation, gating, scoring — runs
-on the model's device with static per-hop capacities and no host
-round-trip; entities never reached within L hops score 0
-(`Static/transductive/models.py:86-88`).
+Port of ``redgnn_tpu/models/redgnn.py`` (sparse hops). The L-hop loop —
+expansion, attention, aggregation, gating, scoring — runs on the model's
+device with static per-hop capacities and no host round-trip; entities
+never reached within L hops score 0
+(`Static/transductive/models.py:86-88`). Every op on the path
+differentiates as the JAX package's does; dropout acts on each hop's new
+hidden state before the gate, in training only.
 
 Not ported yet: bitmap dedup, dense-mode hops, edge sharding, bfloat16
-compute, dropout and gradients (the training slice).
+compute.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ class ModelConfig:
     hidden_dim: int = 48
     attn_dim: int = 5
     n_layer: int = 3
+    dropout: float = 0.29
     act: str = "relu"
     segment_impl: str = "xla"
     # node-dedup scheme per hop: 'sort', 'bitmap' or 'auto' (_resolve_dedup)
@@ -69,6 +72,17 @@ def _resolve_dedup(dedup_impl: str, key_space: int, edge_cap: int,
             f"segment_impl={segment_impl!r} requires dst-sorted edges; "
             "use dedup_impl='sort' (or 'auto')")
     return dedup_impl
+
+
+def _dropout(x: torch.Tensor, rate: float,
+             generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout``): keep with probability
+    ``1 - rate`` and scale the kept values by ``1 / (1 - rate)``."""
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class RedGNN(nn.Module):
@@ -106,10 +120,20 @@ class RedGNN(nn.Module):
         rels: torch.Tensor,    # (B,) query relations
         qmask: torch.Tensor,   # (B,) bool — false for padded queries
         caps: FrontierCaps,
+        train: bool = False,
+        generator: torch.Generator | None = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Scores (B, n_ent) and ``aux`` per-hop tensors
-        (edge_overflow, node_overflow, num_nodes, num_edges)."""
+        (edge_overflow, node_overflow, num_nodes, num_edges).
+
+        ``train`` turns dropout on; its masks are drawn from
+        ``generator``, which must live on the model's device (the global
+        RNG is never used)."""
         cfg = self.cfg
+        drop = train and cfg.dropout > 0.0
+        if drop and generator is None:
+            raise ValueError("training with dropout needs a torch.Generator "
+                             "on the model's device")
         dev = self.device
         b = subs.shape[0]
         d = cfg.hidden_dim
@@ -150,6 +174,8 @@ class RedGNN(nn.Module):
             # carry GRU state: previous nodes keep h0, new nodes start at 0
             h0 = align_old_to_new(node_keys, fr.node_keys, h0,
                                   caps.node_caps[i + 1])
+            if drop:
+                new_hidden = _dropout(new_hidden, cfg.dropout, generator)
             hidden = self.gate(new_hidden, h0)
             h0 = hidden
             node_keys = fr.node_keys

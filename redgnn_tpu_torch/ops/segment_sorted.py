@@ -10,6 +10,15 @@ PyTorch (masked ``index_add_``): tensors on the CPU take it, tensors on a
 CUDA device always launch the kernel. ``segment_sum_sorted_checked.launches``
 counts the kernel's launches through either entry point.
 
+``segment_sum_sorted`` is differentiable in ``data``. On the card the
+kernel sits in a ``torch.autograd.Function`` whose backward is the JAX
+package's ``_bwd`` (`segment_pallas.py:169-174`): a gather of the output
+gradient at the segment ids, zero where the id was dropped. That backward
+is an XLA gather in the JAX package, not a TPU kernel, so it is a masked
+``index_select`` here; on the CPU the plain version's own autograd gives
+the same rows. ``segment_sum_sorted_checked`` (the ``kmax`` contract) is
+forward only, as ``segment_sum_pallas_checked`` is.
+
 The ``kmax`` contract of ``segment_sum_pallas_checked`` is kept: output
 nodes come in blocks of ``bn``, edges in chunks of ``chunk``; block j
 consumes at most ``kmax`` chunks from the first chunk that holds one of
@@ -130,9 +139,6 @@ def _launch(data: torch.Tensor, segment_ids: torch.Tensor,
     the (N, D) sum; raises on what the kernel does not take."""
     if not data.is_cuda:
         raise ValueError(f"unsupported device {data.device}")
-    if data.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the sorted-segment-sum kernel has no backward yet")
     if data.dtype != torch.float32:
         data = data.to(torch.float32)
     if not (data.is_contiguous() and segment_ids.is_contiguous()):
@@ -174,8 +180,15 @@ def segment_sum_sorted_checked(data: torch.Tensor, segment_ids: torch.Tensor,
 
     A CUDA tensor launches the kernel (and counts one launch in
     ``segment_sum_sorted_checked.launches``); a CPU tensor takes
-    `segment_sum_sorted_reference`. The kernel has no backward yet.
+    `segment_sum_sorted_reference`. Forward only on either device, as
+    `segment_sum_pallas_checked` is (a chunk budget that drops edges has
+    no defined gradient): ``data`` that requires grad is refused; the
+    differentiable entry point is `segment_sum_sorted`.
     """
+    if data.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "segment_sum_sorted_checked is forward only; differentiate "
+            "segment_sum_sorted")
     if data.device.type == "cpu":
         return segment_sum_sorted_reference(data, segment_ids, num_segments,
                                             kmax, chunk, bn)
@@ -188,13 +201,42 @@ def segment_sum_sorted_checked(data: torch.Tensor, segment_ids: torch.Tensor,
 segment_sum_sorted_checked.launches = 0
 
 
+class _SegmentSumSorted(torch.autograd.Function):
+    """The kernel with the JAX package's custom VJP around it."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments):
+        ctx.save_for_backward(segment_ids)
+        ctx.num_segments = num_segments
+        return _launch(data.detach(), segment_ids, num_segments, None, BN)
+
+    @staticmethod
+    def backward(ctx, g):
+        (segment_ids,) = ctx.saved_tensors
+        return _gather_grad(g, segment_ids, ctx.num_segments), None, None
+
+
+def _gather_grad(g: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """d_data of the segment sum: ``g[seg]``, zero where the forward
+    dropped the edge. The JAX package masks ``seg < N`` only; the port's
+    forward also drops negative ids, so both sides are masked."""
+    # dropped ids read one zero row appended to g: one gather, no second
+    # pass over the (E, D) result
+    keep = (segment_ids >= 0) & (segment_ids < num_segments)
+    idx = torch.where(keep, segment_ids, num_segments)
+    return torch.cat([g, g.new_zeros((1, g.shape[1]))]).index_select(0, idx)
+
+
 def segment_sum_sorted(data: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
-    """`segment_sum_pallas`: the sum without the overflow flag, no kmax.
-    The serving path's call: on the card it launches the kernel and builds
-    nothing else."""
+    """`segment_sum_pallas`: the sum without the overflow flag, no kmax;
+    differentiable in ``data``. The serving and training paths' call: on
+    the card it launches the kernel and builds nothing else."""
     if data.device.type == "cpu":
         return segment_sum_sorted_reference(data, segment_ids,
                                             num_segments)[0]
     _check(data, segment_ids, num_segments)
+    if data.requires_grad and torch.is_grad_enabled():
+        return _SegmentSumSorted.apply(data, segment_ids, num_segments)
     return _launch(data, segment_ids, num_segments, None, BN)

@@ -1,7 +1,9 @@
 """Batch inference / serving entry point (static KGs).
 
 Port of ``redgnn_tpu/serve.py:Predictor``: takes (head, relation)
-queries and returns the top-k candidate entities with their scores. The
+queries and returns the top-k candidate entities with their scores,
+built either from a model and a state dict or, as in the JAX package,
+from a fitted trainer (`Predictor.from_trainer`). The
 per-hop capacities are calibrated on the split's query heads, as the JAX
 package does; a batch that expands past them is detected by the
 on-device overflow flags and raised, never silently truncated.
@@ -52,6 +54,18 @@ class Predictor:
                                    headroom=cfg.cap_headroom)
         self.batch = cfg.n_tbatch
         self.graph = spec.graph
+
+    @classmethod
+    def from_trainer(cls, trainer, split: str = "test",
+                     top_k: int = 10) -> "Predictor":
+        """The JAX package's constructor shape: serve a fitted
+        `StaticTrainer`'s model over its KG. The trainer's eval caps of
+        ``split`` are used when it has evaluated that split already, and
+        are kept there otherwise, as the JAX Predictor does."""
+        pred = cls(trainer.model, None, trainer.kg, trainer.cfg,
+                   split=split, top_k=top_k)
+        pred.caps = trainer.eval_caps.setdefault(split, pred.caps)
+        return pred
 
     @torch.inference_mode()
     def _predict_batch(self, heads: np.ndarray, rels: np.ndarray

@@ -1,11 +1,13 @@
-"""Carry the JAX package's RedGNN parameters over to the port.
+"""Carry the JAX package's RedGNN parameters and Adam state over to the port.
 
 ``params_from_flax`` maps the flax parameter tree of
 ``redgnn_tpu.models.redgnn.RedGNN`` (a nested dict of arrays) onto the
 state dict of ``redgnn_tpu_torch.models.redgnn.RedGNN``. Flax ``Dense``
 kernels are (in, out) and torch ``Linear`` weights (out, in), so kernels
 are transposed; the GRU gate's (D, 3D) matrices become torch's (3D, D)
-layout with the same r|z|n gate order.
+layout with the same r|z|n gate order. ``opt_state_from_optax`` carries
+the Adam moments (trees of the parameters' shape) and the update count
+the same way, so both packages can continue from one optimizer state.
 """
 
 from __future__ import annotations
@@ -42,3 +44,12 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     sd["gate.bias_hh"] = t(g["b_hh"])
     sd["W_final.weight"] = t(tree["W_final"]["kernel"], True)
     return sd
+
+
+def opt_state_from_optax(mu: Mapping, nu: Mapping, count) -> Dict:
+    """The port's optimizer state ``{"mu", "nu", "count"}`` from optax's
+    ``ScaleByAdamState`` fields (``mu`` and ``nu`` as nested dicts of
+    arrays, ``count`` the number of applied updates). The schedule's own
+    count in the optax chain always equals it."""
+    return {"mu": params_from_flax(mu), "nu": params_from_flax(nu),
+            "count": torch.tensor(int(np.asarray(count)), dtype=torch.int64)}

@@ -1,5 +1,6 @@
-"""Card tests of the port: the CUDA kernel against its plain version, and
-a small model on the card against the same model on the CPU.
+"""Card tests of the port: the CUDA kernel and its backward against the
+plain version, a small model and a train step on the card against the CPU,
+and run-to-run determinism of training.
 
 These need an NVIDIA GPU and skip without one. They import neither JAX
 nor the conftest fixtures, so they also run where JAX is not installed:
@@ -12,13 +13,15 @@ import pytest
 import torch
 
 from redgnn_tpu_torch.graph.calibrate import FrontierCaps
-from redgnn_tpu_torch.graph.kg import DeviceGraph, build_csr
+from redgnn_tpu_torch.graph.kg import DeviceGraph, StaticKG, build_csr
 from redgnn_tpu_torch.models.redgnn import ModelConfig, RedGNN
 from redgnn_tpu_torch.ops.segment_sorted import (
     segment_sum_sorted,
     segment_sum_sorted_checked,
     segment_sum_sorted_reference,
 )
+from redgnn_tpu_torch.train.loop import StaticTrainer, softmax_ce_loss
+from redgnn_tpu_torch.utils.config import TrainConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -135,11 +138,181 @@ def test_kernel_kmax_block_not_dividing(card, kmax, d):
     assert torch.equal(got, again)
 
 
+def _backward_pair(data, s, n, g):
+    """(kernel's autograd.Function, plain version's autograd) gradients of
+    sum(out * g) with respect to ``data``."""
+    grads = []
+    for fn in (segment_sum_sorted,
+               lambda x, i, k: segment_sum_sorted_reference(x, i, k)[0]):
+        x = data.clone().requires_grad_()
+        before = segment_sum_sorted_checked.launches
+        out = fn(x, s, n)
+        launched = segment_sum_sorted_checked.launches - before
+        assert launched == (1 if fn is segment_sum_sorted else 0)
+        out.backward(g)
+        grads.append(x.grad)
+    torch.cuda.synchronize()
+    return grads
+
+
 def test_kernel_rejects_grad(card):
+    """The kmax entry point stays forward only; the plain entry point is
+    differentiable on the card (the test's name dates from when neither
+    was)."""
     x = torch.ones(4, 2, device=card, requires_grad=True)
     s = torch.zeros(4, dtype=torch.int32, device=card)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="forward only"):
         segment_sum_sorted_checked(x, s, 1)
+    out = segment_sum_sorted(x, s, 1)
+    assert out.requires_grad
+    out.sum().backward()
+    assert torch.equal(x.grad, torch.ones_like(x))
+    with torch.no_grad():  # no graph: the bare launch
+        assert not segment_sum_sorted(x, s, 1).requires_grad
+
+
+@pytest.mark.parametrize("e,d,n", [(2560, 48, 2048), (44032, 48, 8704),
+                                   (170496, 48, 9984)])
+def test_kernel_backward_hop_shapes(card, e, d, n):
+    """Gradient through the kernel at the slice's hop shapes, padding ids
+    past the end and a non-contiguous output gradient: a gather on both
+    sides, so bit for bit."""
+    rng = np.random.default_rng(3)
+    n_valid = e * 4 // 5
+    ids = np.concatenate([np.sort(rng.integers(0, n, n_valid)),
+                          np.full(e - n_valid, n)]).astype(np.int32)
+    data = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(d, n)).astype(np.float32))
+    got, want = _backward_pair(data.to(card), torch.from_numpy(ids).to(card),
+                               n, g.to(card).T)
+    assert torch.equal(got, want)
+    assert bool((got[n_valid:] == 0).all())
+
+
+@pytest.mark.parametrize("kind,e,n", [
+    ("spans_shares", 3000, 64), ("one_segment", 20000, 10),
+    ("sparse", 500, 200_000), ("all_out_of_range", 2000, 300),
+    ("negative_first", 3000, 700),
+])
+def test_kernel_backward_boundaries(card, kind, e, n):
+    rng = np.random.default_rng(0)
+    ids = _boundary_ids(rng, kind, e, n)
+    data = torch.from_numpy(rng.normal(size=(e, 33)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(n, 33)).astype(np.float32))
+    got, want = _backward_pair(data.to(card), torch.from_numpy(ids).to(card),
+                               n, g.to(card))
+    assert torch.equal(got, want)
+    dropped = torch.from_numpy((ids < 0) | (ids >= n))
+    assert bool((got.cpu()[dropped] == 0).all())
+
+
+@pytest.mark.parametrize("idx_shape", [(53504,), (20, 7)])
+def test_take_rows_over_budget_backward(card, monkeypatch, idx_shape):
+    """Over the one-hot budget the backward is a scatter-add by
+    index_put_(accumulate=True): the same gradient as the one-hot product
+    (another summation order), and the same bits on a second run."""
+    from redgnn_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(5)
+    r, d = 25, 48
+    table = torch.from_numpy(rng.normal(size=(r, d)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, r, idx_shape).astype(np.int32))
+    w = torch.from_numpy(rng.normal(size=idx_shape + (d,)).astype(np.float32))
+
+    def grad():
+        t = table.to(card).requires_grad_()
+        (gather.take_rows(t, idx.to(card)) * w.to(card)).sum().backward()
+        return t.grad
+
+    onehot = grad()
+    monkeypatch.setattr(gather, "_ONEHOT_BUDGET", 0)
+    over, again = grad(), grad()
+    assert torch.equal(over, again)
+    torch.testing.assert_close(over, onehot, rtol=1e-4,
+                               atol=1e-5 * float(onehot.abs().max()))
+    cpu = table.clone().requires_grad_()
+    (cpu[idx.long()] * w).sum().backward()
+    torch.testing.assert_close(over.cpu(), cpu.grad, rtol=1e-4,
+                               atol=1e-5 * float(cpu.grad.abs().max()))
+
+
+def _write_kg(path, rng, n_ent=40, n_rel=4):
+    """A small KG in the reference's file format (a composition rule plus
+    noise), split 60/25/10/5."""
+    p1, p0 = rng.permutation(n_ent), rng.permutation(n_ent)
+    tri = []
+    for i in range(n_ent):
+        tri += [(i, 1, p1[i]), (p1[i], 0, p0[p1[i]]), (i, 2, p0[p1[i]]),
+                (i, 3, rng.integers(n_ent))]
+    tri = [tri[i] for i in rng.permutation(len(tri))]
+    n = len(tri)
+    cuts = {"facts.txt": (0, int(n * .6)), "train.txt": (int(n * .6),
+            int(n * .85)), "valid.txt": (int(n * .85), int(n * .95)),
+            "test.txt": (int(n * .95), n)}
+    (path / "entities.txt").write_text(
+        "".join(f"e{i}\n" for i in range(n_ent)))
+    (path / "relations.txt").write_text(
+        "".join(f"r{i}\n" for i in range(n_rel)))
+    for name, (lo, hi) in cuts.items():
+        (path / name).write_text(
+            "".join(f"e{h}\tr{r}\te{t}\n" for h, r, t in tri[lo:hi]))
+    return str(path)
+
+
+TRAIN = dict(hidden_dim=16, attn_dim=5, n_layer=3, lr=0.01, lamb=1e-4,
+             n_batch=8, n_tbatch=8, segment_impl="pallas", dense_hops=False,
+             scan_chunk=2)
+
+
+def test_train_step_on_card_matches_cpu(card, tmp_path):
+    d = _write_kg(tmp_path, np.random.default_rng(0))
+    cfg = TrainConfig(**TRAIN, dropout=0.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tr = StaticTrainer(StaticKG.load(d, device=dev), cfg)
+        b = cfg.n_batch
+        batch = torch.as_tensor(tr.kg.train_data[:b], dtype=torch.int32,
+                                device=dev)
+        qmask = torch.ones(b, dtype=torch.bool, device=dev)
+        scores, aux = tr.model(tr.kg.graph, batch[:, 0], batch[:, 1], qmask,
+                               tr.train_caps)
+        loss = softmax_ce_loss(scores, batch[:, 2], qmask)
+        grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+        before = segment_sum_sorted_checked.launches
+        step_loss, overflow, num_edges = tr._train_step(
+            batch[:, 0], batch[:, 1], batch[:, 2], qmask, tr.train_caps)
+        launched = segment_sum_sorted_checked.launches - before
+        assert launched == (cfg.n_layer if dev == "cuda" else 0)
+        out[dev] = (loss.item(), [g.cpu() for g in grads], step_loss.item(),
+                    bool(overflow), num_edges.cpu(), tr._flat.cpu())
+    c, g = out["cpu"], out["cuda"]
+    assert g[0] == pytest.approx(c[0], rel=1e-5)
+    assert g[2] == pytest.approx(c[2], rel=1e-5)
+    for a, b_ in zip(g[1], c[1]):
+        torch.testing.assert_close(a, b_, rtol=1e-4,
+                                   atol=1e-5 * float(b_.abs().max()))
+    assert g[3] == c[3] is False and torch.equal(g[4], c[4])
+    # one Adam step moves every weight by about lr whatever the gradient's
+    # size, so a gradient's rounding shows up scaled by lr / |grad|
+    torch.testing.assert_close(g[5], c[5], rtol=0, atol=1e-3)
+
+
+def test_training_on_card_is_deterministic(card, tmp_path):
+    """Two identical runs of 4 steps (2 chunks, dropout on) end at the
+    same bits: no float atomics on the training path."""
+    d = _write_kg(tmp_path, np.random.default_rng(0))
+    cfg = TrainConfig(**TRAIN, dropout=0.2)
+    ends = []
+    for _ in range(2):
+        kg = StaticKG.load(d, device="cuda")
+        kg.train_data = kg.train_data[:4 * cfg.n_batch]
+        tr = StaticTrainer(kg, cfg)
+        loss = tr.train_epoch(0)
+        assert int(tr.opt_state["count"]) == 4 and tr.host_syncs == 2
+        ends.append((loss, tr._flat.clone(), tr.opt_state["nu"].clone()))
+    assert ends[0][0] == ends[1][0]
+    assert torch.equal(ends[0][1], ends[1][1])
+    assert torch.equal(ends[0][2], ends[1][2])
 
 
 def test_model_on_card_matches_cpu(card):

@@ -37,6 +37,7 @@ import torch
 from chip_smoke import (
     KERNEL_TOL,
     N_BATCHES,
+    batch_tensors,
     build_slice,
     device_ms,
     kernel_hops,
@@ -142,7 +143,9 @@ def main() -> int:
     queries = serving_queries(kg, N_BATCHES * pred.batch)[:pred.batch]
 
     rows = []
-    for i, (msg, seg, _, n_valid, n) in enumerate(kernel_hops(pred, queries)):
+    for i, (msg, seg, _, n_valid, n) in enumerate(kernel_hops(
+            pred.graph, pred.caps, pred.model.cfg,
+            batch_tensors(pred, queries)[0])):
         want = segment_sum_sorted_reference(msg, seg, n)[0]
         t_tree = [device_ms(lambda: segment_sum_sorted(msg, seg, n))]
         times = {}

@@ -36,6 +36,31 @@ Phases (any failure raises, and the script exits non-zero):
      propagated edges/s, eval queries/s, peak memory and a torch.profiler
      pass over 2 steps (idle share, largest kernels, forward / backward /
      optimizer shares of device time).
+  6. the whole static model on a seeded synthetic KG of the umls
+     dataset's size (135 entities, 46 relations, 5,216 / 652 / 661 train /
+     valid / test triples; it stands in for umls, whose files are not in
+     the repository), at the umls registry entry (hidden 48, attn 5, L=4,
+     n_batch 20, n_tbatch 50):
+     6a. registry defaults (dedup 'auto', segment_impl='xla', dense hops):
+         Predictor serves 8 batches; the hops' schemes are printed and at
+         least one must be bitmap and one dense; one batch, and one train
+         step's loss and gradients (with the packed gather's prefix-sum
+         backward and without), against the CPU; 16 train steps; a
+         whole-split evaluate("valid"). The plain segment sum is
+         index_add_, which adds with float atomics on a CUDA device, so
+         this configuration is held to tolerances and never to equal
+         bits.
+     6b. segment_impl='pallas': sort-dedup sparse hops, then dense hops
+         through the kernel (2 launches a hop: the (E, b*d) messages and
+         the (E, b) live counts by the tail-sorted table's ids). At every
+         dense call's real inputs, serving and training, the kernel
+         against its plain version, forward and backward, with device
+         times, byte bound and index_add_; one served batch and one train
+         step against the CPU; launches per batch counted; two runs of 4
+         steps bit-equal; ms per batch and step, idle share, peak memory.
+     6c. the family-sized KG of phase 4 at registry defaults (sort, then
+         bitmap hops): one served batch and one train step (prefix-sum
+         backward of the packed gather) against the CPU.
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero.
 """
@@ -64,6 +89,14 @@ TRAIN_STEPS, TRAIN_CHUNK = 64, 32  # phase 5: 2 chunks of scan_chunk steps
 # a parameter's gradient, card vs CPU: |diff| <= GRAD_RTOL * |cpu| +
 # GRAD_ATOL_REL * max|cpu| (sums over ~60k edges in another order)
 GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5
+# the same with scan_src_backward=True: the packed gather's backward takes
+# differences of a float32 prefix sum over all edges of a hop, which adds
+# O(total magnitude * eps) noise in another order on each device
+SCAN_GRAD_RTOL, SCAN_GRAD_ATOL_REL = 1e-3, 1e-4
+# phase 6: the umls dataset's sizes
+UMLS_ENT, UMLS_REL = 135, 46
+UMLS_TRAIN, UMLS_VALID, UMLS_TEST = 5_216, 652, 661
+UMLS_TRAIN_STEPS = 16
 
 
 def log(msg: str) -> None:
@@ -123,22 +156,34 @@ def write_synthetic_kg(path: str, seed: int = SEED) -> None:
             f.write("".join(f"e{h}\tr{r}\te{t}\n" for h, r, t in tri))
 
 
-def build_slice(data_dir: str, device: str):
-    """(kg, cfg, model, predictor) of the slice on ``device``."""
-    from redgnn_tpu_torch.graph.kg import StaticKG
+def model_of(kg, cfg, device: str):
+    """RedGNN of a registry entry ``cfg`` over ``kg``, seeded weights."""
     from redgnn_tpu_torch.models.redgnn import ModelConfig, RedGNN
-    from redgnn_tpu_torch.serve import Predictor
-    from redgnn_tpu_torch.utils.config import dataset_config
 
-    cfg = dataset_config("static_transductive", "family",
-                         segment_impl="pallas", dense_hops=False)
-    kg = StaticKG.load(data_dir, device=device)
-    model = RedGNN(ModelConfig(
+    return RedGNN(ModelConfig(
         n_ent=kg.n_ent, n_rel=kg.n_rel, hidden_dim=cfg.hidden_dim,
         attn_dim=cfg.attn_dim, n_layer=cfg.n_layer, act=cfg.act,
         segment_impl=cfg.segment_impl, dedup_impl=cfg.dedup_impl,
-        dense_hops=cfg.dense_hops),
+        scan_src_backward=cfg.scan_src_backward,
+        dense_hops=cfg.dense_hops, dense_switch=cfg.dense_switch),
         device=device, generator=torch.Generator().manual_seed(SEED))
+
+
+# phases 3-5: the family entry with the kernel on every hop, no dense hops
+KERNEL_SLICE = dict(segment_impl="pallas", dense_hops=False)
+
+
+def build_slice(data_dir: str, device: str, dataset: str = "family",
+                **overrides):
+    """(kg, cfg, model, predictor) on ``device``: the registry entry of
+    ``dataset`` with ``overrides``."""
+    from redgnn_tpu_torch.graph.kg import StaticKG
+    from redgnn_tpu_torch.serve import Predictor
+    from redgnn_tpu_torch.utils.config import dataset_config
+
+    cfg = dataset_config("static_transductive", dataset, **overrides)
+    kg = StaticKG.load(data_dir, device=device)
+    model = model_of(kg, cfg, device)
     pred = Predictor(model, None, kg, cfg, split="test", top_k=10)
     return kg, cfg, model, pred
 
@@ -459,8 +504,36 @@ def profile_batches(pred, queries, card):
     profile_report(prof, wall_us, -(-len(queries) // b), "batch", card)
 
 
-def phase_slice(kg, model, pred, queries, card):
+def batch_card_vs_cpu(model, pred, q, tag: str):
+    """One batch on the card vs the same model on the CPU (plain path):
+    scores within 1e-4, aux counts equal, top-10 equal where untied.
+    Returns the card's aux."""
     from redgnn_tpu_torch.models.redgnn import RedGNN
+
+    cpu = RedGNN(model.cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        s_gpu, aux = model(pred.graph, *batch_tensors(pred, q), pred.caps)
+        s_cpu, aux_cpu = cpu(pred.graph.to("cpu"),
+                             *(t.cpu() for t in batch_tensors(pred, q)),
+                             pred.caps)
+    for k in aux:
+        assert torch.equal(aux[k].cpu(), aux_cpu[k]), k
+    s_gpu = s_gpu.cpu()
+    assert bool(torch.isfinite(s_gpu).all()) and float(s_cpu.abs().max()) > 0
+    diff = float((s_gpu - s_cpu).abs().max())
+    assert diff <= 1e-4, diff
+    tg, tc = torch.topk(s_gpu, 11), torch.topk(s_cpu, 11)
+    n_cmp = topk_untied_agree(tg.values.numpy(), tg.indices.numpy(),
+                              tc.values.numpy(), tc.indices.numpy(), 1e-4)
+    log(f"{tag} card vs CPU, one batch: max |score diff| {diff:.3g} "
+        f"(atol 1e-4); aux equal, num_nodes {aux_cpu['num_nodes'].tolist()} "
+        f"num_edges {aux_cpu['num_edges'].tolist()}; top-10 equal at "
+        f"{n_cmp} untied ranks")
+    return aux_cpu
+
+
+def phase_slice(kg, model, pred, queries, card):
     from redgnn_tpu_torch.ops.segment_sorted import segment_sum_sorted_checked
 
     b = pred.batch
@@ -499,25 +572,7 @@ def phase_slice(kg, model, pred, queries, card):
 
     profile_batches(pred, queries[:2 * b], card)
 
-    # one batch on the card vs the same model on the CPU (plain path)
-    cpu = RedGNN(model.cfg, device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    q = queries[:b]
-    with torch.inference_mode():
-        s_gpu, aux = model(pred.graph, *batch_tensors(pred, q), pred.caps)
-        s_cpu, aux_cpu = cpu(pred.graph.to("cpu"),
-                             *(t.cpu() for t in batch_tensors(pred, q)),
-                             pred.caps)
-    for k in aux:
-        assert torch.equal(aux[k].cpu(), aux_cpu[k]), k
-    s_gpu = s_gpu.cpu()
-    diff = float((s_gpu - s_cpu).abs().max())
-    assert diff <= 1e-4, diff
-    tg, tc = torch.topk(s_gpu, 11), torch.topk(s_cpu, 11)
-    n_cmp = topk_untied_agree(tg.values.numpy(), tg.indices.numpy(),
-                              tc.values.numpy(), tc.indices.numpy(), 1e-4)
-    log(f"[slice] card vs CPU, one batch: max |score diff| {diff:.3g} "
-        f"(atol 1e-4); aux equal; top-10 equal at {n_cmp} untied ranks")
+    batch_card_vs_cpu(model, pred, queries[:b], "[slice]")
     return launches
 
 
@@ -526,20 +581,19 @@ def phase_slice(kg, model, pred, queries, card):
 def train_config(dropout: float):
     from redgnn_tpu_torch.utils.config import dataset_config
 
-    return dataset_config("static_transductive", "family",
-                          segment_impl="pallas", dense_hops=False,
+    return dataset_config("static_transductive", "family", **KERNEL_SLICE,
                           scan_chunk=TRAIN_CHUNK, dropout=dropout)
 
 
-def make_trainer(data_dir: str, device: str, dropout: float):
-    """A StaticTrainer of the family config on the first TRAIN_STEPS
-    batches of the synthetic KG's training queries."""
+def make_trainer(data_dir: str, device: str, cfg,
+                 steps: int = TRAIN_STEPS):
+    """A StaticTrainer of ``cfg`` on the first ``steps`` batches of the
+    synthetic KG's training queries."""
     from redgnn_tpu_torch.graph.kg import StaticKG
     from redgnn_tpu_torch.train.loop import StaticTrainer
 
-    cfg = train_config(dropout)
     kg = StaticKG.load(data_dir, device=device)
-    kg.train_data = kg.train_data[:TRAIN_STEPS * cfg.n_batch]
+    kg.train_data = kg.train_data[:steps * cfg.n_batch]
     return StaticTrainer(kg, cfg)
 
 
@@ -625,13 +679,16 @@ def kernel_train_hops_check(trainer, caps, card):
     return rows
 
 
-def step_card_vs_cpu(data_dir: str, gpu, caps):
+def step_card_vs_cpu(data_dir: str, gpu, caps, tag: str = "[train]",
+                     rtol: float = GRAD_RTOL,
+                     atol_rel: float = GRAD_ATOL_REL):
     """One step's loss, aux counts and every parameter's gradient on the
-    card against the CPU plain path: same seed (same parameters), same
-    batch, dropout 0."""
+    card against the CPU plain path: same config and seed (same
+    parameters), same batch, no dropout (inference-mode forward)."""
     from redgnn_tpu_torch.train.loop import softmax_ce_loss
 
-    cpu = make_trainer(data_dir, "cpu", dropout=0.0)
+    cpu = make_trainer(data_dir, "cpu", gpu.cfg,
+                       steps=len(gpu.kg.train_data) // gpu.cfg.n_batch)
     out = {}
     for name, tr in (("cpu", cpu), ("cuda", gpu)):
         subs, rels, objs, qmask = step_tensors(tr, 0)
@@ -647,16 +704,16 @@ def step_card_vs_cpu(data_dir: str, gpu, caps):
     worst, nonzero = 0.0, 0
     for (name, _), a, b in zip(cpu.model.named_parameters(), g_g, g_c):
         scale = float(b.abs().max())
-        err = float(((a - b).abs() - GRAD_RTOL * b.abs()).max())
-        assert err <= GRAD_ATOL_REL * scale, (name, err, scale)
+        err = float(((a - b).abs() - rtol * b.abs()).max())
+        assert err <= atol_rel * scale, (name, err, scale)
         if scale > 0:  # hop 0 starts from zero states: W_s gets no gradient
             nonzero += 1
             worst = max(worst, float((a - b).abs().max()) / scale)
     assert nonzero >= len(g_c) - 1, nonzero
-    log(f"[train] one step, card vs CPU (dropout 0): loss {l_g:.6f} vs "
+    log(f"{tag} one step, card vs CPU (dropout 0): loss {l_g:.6f} vs "
         f"{l_c:.6f} (rtol 1e-5); aux counts equal, num_edges "
         f"{aux_c['num_edges'].tolist()}; {len(g_c)} parameter gradients "
-        f"within rtol {GRAD_RTOL} + {GRAD_ATOL_REL} * max|grad|, worst "
+        f"within rtol {rtol} + {atol_rel} * max|grad|, worst "
         f"max|diff| / max|grad| {worst:.3g}")
     return int(aux_c["num_edges"].sum())
 
@@ -723,7 +780,7 @@ def phase_train(data_dir: str, card):
     from redgnn_tpu_torch.graph.calibrate import per_query_counts
     from redgnn_tpu_torch.ops.segment_sorted import segment_sum_sorted_checked
 
-    plain = make_trainer(data_dir, "cuda", dropout=0.0)
+    plain = make_trainer(data_dir, "cuda", train_config(0.0))
     caps = exact_train_caps(plain)
     cfg = plain.cfg
     assert (cfg.hidden_dim, cfg.attn_dim, cfg.n_layer, cfg.n_batch) == \
@@ -735,7 +792,7 @@ def phase_train(data_dir: str, card):
     hop_rows = kernel_train_hops_check(plain, caps, card)
     edges_step0 = step_card_vs_cpu(data_dir, plain, caps)
 
-    trainer = make_trainer(data_dir, "cuda", dropout=0.29)
+    trainer = make_trainer(data_dir, "cuda", train_config(0.29))
     kg = trainer.kg
     nc, ec = per_query_counts(kg.graph_np[0], kg.graph_np[2], kg.n_ent,
                               kg.train_data[:, 0], cfg.n_layer)
@@ -808,6 +865,338 @@ def phase_train(data_dir: str, card):
     return launches, hop_rows
 
 
+# ------------------------------------- phase 6: the whole static model
+
+def write_umls_sized_kg(path: str, seed: int = SEED) -> None:
+    """A KG of the umls dataset's size in the reference's file format:
+    135 entities, 46 relations, 5,216 graph triples (3/4 in facts.txt,
+    1/4 in train.txt), 652 valid and 661 test triples, all distinct. It
+    stands in for umls: heads and relations are drawn with Zipf-like
+    weights, so the graph is dense (a mean degree near 80 once doubled)
+    with a few hubs, and the frontier saturates after one hop."""
+    rng = np.random.default_rng(seed)
+    need = UMLS_TRAIN + UMLS_VALID + UMLS_TEST
+    w_ent = 1.0 / np.arange(1, UMLS_ENT + 1) ** 0.6
+    w_rel = 1.0 / np.arange(1, UMLS_REL + 1) ** 0.8
+    ent_perm = rng.permutation(UMLS_ENT)
+    triples = np.empty((0, 3), np.int64)
+    while len(triples) < need:
+        n = 2 * (need - len(triples))
+        h = ent_perm[rng.choice(UMLS_ENT, n, p=w_ent / w_ent.sum())]
+        r = rng.choice(UMLS_REL, n, p=w_rel / w_rel.sum())
+        t = rng.integers(0, UMLS_ENT, n)
+        new = np.stack([h, r, t], 1)[h != t]
+        triples = np.unique(np.concatenate([triples, new]), axis=0)
+    triples = triples[rng.permutation(len(triples))[:need]]
+    n_fact = UMLS_TRAIN * 3 // 4
+    splits = {
+        "facts.txt": triples[:n_fact],
+        "train.txt": triples[n_fact:UMLS_TRAIN],
+        "valid.txt": triples[UMLS_TRAIN:UMLS_TRAIN + UMLS_VALID],
+        "test.txt": triples[UMLS_TRAIN + UMLS_VALID:],
+    }
+    with open(os.path.join(path, "entities.txt"), "w") as f:
+        f.write("".join(f"e{i}\n" for i in range(UMLS_ENT)))
+    with open(os.path.join(path, "relations.txt"), "w") as f:
+        f.write("".join(f"r{i}\n" for i in range(UMLS_REL)))
+    for name, tri in splits.items():
+        with open(os.path.join(path, name), "w") as f:
+            f.write("".join(f"e{h}\tr{r}\te{t}\n" for h, r, t in tri))
+
+
+def timed_batches(pred, queries, n_batches: int):
+    """Per-batch host ms of ``n_batches`` served batches, and the peak
+    memory over them."""
+    b = pred.batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for k in range(n_batches):
+        q = queries[k * b:(k + 1) * b]
+        t0 = time.perf_counter()
+        s, e = pred.predict(q[:, 0], q[:, 1])  # raises on overflow
+        times.append((time.perf_counter() - t0) * 1e3)
+        assert s.shape == (b, 10) and np.isfinite(s).all()
+        assert ((e >= 0) & (e < pred.graph.n_ent)).all()
+    return times, torch.cuda.max_memory_allocated()
+
+
+def train_steps_check(trainer, steps: int, tag: str, card):
+    """``steps`` steps through train_epoch: every update applied, finite
+    loss, parameters moved. Returns (ms per step of a second, warm epoch,
+    peak memory of it)."""
+    flat0 = trainer._flat.clone()
+    loss = trainer.train_epoch(0)
+    assert int(trainer.opt_state["count"]) == steps
+    assert np.isfinite(loss) and loss > 0, loss
+    assert not torch.equal(trainer._flat, flat0)
+    assert bool(torch.isfinite(trainer._flat).all())
+    trainer.timer.enabled = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss2 = trainer.train_epoch(1)
+    seconds = trainer.timer.buckets["train"]["device"]
+    peak = torch.cuda.max_memory_allocated()
+    assert int(trainer.opt_state["count"]) == 2 * steps
+    assert np.isfinite(loss2)
+    log(f"{tag} {steps} steps through train_epoch: {steps} updates "
+        f"applied, loss sum {loss:.2f}; a second, warm epoch "
+        f"{seconds / steps * 1e3:.3f} ms per step, loss sum {loss2:.2f}, "
+        f"max_memory_allocated {peak} B ({card})")
+    return seconds / steps * 1e3, peak
+
+
+def eval_check(trainer, tag: str, card):
+    spec = trainer.kg.eval_spec("valid")
+    n_answers = sum(len(a) for a in spec.answers)
+    trainer.evaluate("valid")  # calibrates the split's caps, warms up
+    t0 = time.perf_counter()
+    m = trainer.evaluate("valid")
+    seconds = time.perf_counter() - t0
+    assert m["n"] == n_answers, (m["n"], n_answers)
+    assert all(0.0 <= m[k] <= 1.0 for k in ("mrr", "h1", "h3", "h10")), m
+    assert m["h1"] <= m["h3"] <= m["h10"]
+    log(f"{tag} evaluate('valid'): {len(spec.queries)} grouped queries, "
+        f"{n_answers} answers ranked, MRR {m['mrr']:.4f} H@1 {m['h1']:.4f} "
+        f"H@10 {m['h10']:.4f} (random weights after a few steps); "
+        f"{seconds:.3f} s, {len(spec.queries) / seconds:.1f} queries/s "
+        f"({card})")
+
+
+def phase_defaults(data_dir: str, card):
+    """Phase 6a: the umls-sized KG at the registry's defaults."""
+    from redgnn_tpu_torch.models.redgnn import hop_plan
+    from redgnn_tpu_torch.utils.config import dataset_config
+
+    kg, cfg, model, pred = build_slice(data_dir, "cuda", "umls",
+                                       scan_chunk=UMLS_TRAIN_STEPS)
+    assert (cfg.dedup_impl, cfg.segment_impl, cfg.dense_hops,
+            cfg.scan_src_backward) == ("auto", "xla", True, True)
+    assert (cfg.hidden_dim, cfg.attn_dim, cfg.n_layer, cfg.n_batch,
+            cfg.n_tbatch) == (48, 5, 4, 20, 50)
+    kinds = hop_plan(model.cfg, pred.graph, pred.caps, pred.batch)
+    log(f"[6a] KG: {kg.n_ent} entities, {kg.n_rel} relations, "
+        f"{len(kg.fact) + len(kg.train)} / {len(kg.valid)} / {len(kg.test)} "
+        f"train / valid / test triples, {kg.eval_graph.n_edges} edges with "
+        f"inverses and self-loops; serving caps node {pred.caps.node_caps} "
+        f"edge {pred.caps.edge_caps}; hops at batch {pred.batch}: {kinds}")
+    assert "bitmap" in kinds and "dense" in kinds, kinds
+    queries = serving_queries(kg, N_BATCHES * pred.batch)
+    assert len(queries) == N_BATCHES * pred.batch
+    timed_batches(pred, queries, 1)  # warm-up
+    times, peak = timed_batches(pred, queries, N_BATCHES)
+    log(f"[6a] served {N_BATCHES} batches of {pred.batch} at registry "
+        f"defaults: per-batch ms {[round(t, 3) for t in times]}; mean "
+        f"{np.mean(times):.3f} ms; max_memory_allocated {peak} B ({card})")
+    batch_card_vs_cpu(model, pred, queries[:pred.batch], "[6a]")
+
+    for scan in (True, False):
+        step_cfg = dataset_config("static_transductive", "umls",
+                                  scan_chunk=UMLS_TRAIN_STEPS,
+                                  scan_src_backward=scan)
+        tr = make_trainer(data_dir, "cuda", step_cfg,
+                          steps=UMLS_TRAIN_STEPS)
+        caps = exact_train_caps(tr)
+        tkinds = hop_plan(tr.model_cfg, tr.kg.graph, caps, step_cfg.n_batch)
+        assert "bitmap" in tkinds and "dense" in tkinds, tkinds
+        step_card_vs_cpu(
+            data_dir, tr, caps, f"[6a] scan_src_backward={scan}, hops "
+            f"{tkinds}:", *((SCAN_GRAD_RTOL, SCAN_GRAD_ATOL_REL) if scan
+                            else (GRAD_RTOL, GRAD_ATOL_REL)))
+    trainer = make_trainer(data_dir, "cuda", cfg,
+                           steps=UMLS_TRAIN_STEPS)
+    train_steps_check(trainer, UMLS_TRAIN_STEPS, "[6a]", card)
+    eval_check(trainer, "[6a]", card)
+
+
+def record_segment_sums(run):
+    """The (data, ids, n) of every `segment_sum` call that the layers make
+    while ``run()`` executes, in order."""
+    from redgnn_tpu_torch.models import layers
+
+    calls, orig = [], layers.segment_sum
+
+    def recording(data, ids, num_segments, **kw):
+        calls.append((data.detach().clone(), ids, num_segments))
+        return orig(data, ids, num_segments, **kw)
+
+    layers.segment_sum = recording
+    try:
+        run()
+    finally:
+        layers.segment_sum = orig
+    return calls
+
+
+def dense_kernel_check(calls, n_ent: int, tag: str, card):
+    """The kernel at a path's dense calls (the ones that sum by the
+    tail-sorted table into ``n_ent`` rows), at their real inputs: forward
+    against the plain version (KERNEL_TOL), backward against autograd of
+    the plain version (bit for bit), and device times. Returns one row
+    per call."""
+    from redgnn_tpu_torch.ops.segment_sorted import (
+        _launch_plan,
+        segment_sum_sorted,
+        segment_sum_sorted_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = []
+    for data, ids, n in calls:
+        e, d = data.shape
+        assert n == n_ent and bool((ids[1:] >= ids[:-1]).all())
+        g = torch.randn(n, d, generator=gen, device="cuda")
+        outs, grads = [], []
+        for fn in (segment_sum_sorted,
+                   lambda x, s, k: segment_sum_sorted_reference(x, s, k)[0]):
+            x = data.clone().requires_grad_()
+            out = fn(x, ids, n)
+            out.backward(g)
+            outs.append(out.detach())
+            grads.append(x.grad)
+        again = segment_sum_sorted(data, ids, n)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(outs[0], outs[1], **KERNEL_TOL)
+        assert torch.equal(outs[0], again), "two calls gave different bits"
+        assert torch.equal(grads[0], grads[1]), "backward differs"
+        err = float((outs[0] - outs[1]).abs().max())
+        idx = ids.long()
+        t_k = device_ms(lambda: segment_sum_sorted(data, ids, n))
+        t_f = flushed_ms(lambda: segment_sum_sorted(data, ids, n))
+        t_p = device_ms(lambda: segment_sum_sorted_reference(data, ids, n))
+        t_l = device_ms(lambda: torch.zeros(n, d, device="cuda").index_add_(
+            0, idx, data))
+        # every row read once (dead rows are zeros, but rows all the
+        # same), ids read once, output written once
+        b_ms = (e * d * 4 + e * 4 + n * d * 4) / HBM_BYTES_PER_S * 1e3
+        plan = _launch_plan(n, d, data.data_ptr())
+        log(f"{tag} dense call E={e} D={d} N={n} ({e * d * 4 / 1e6:.1f} MB "
+            f"of rows; vec={plan.vec}): kernel == plain, max |diff| {err:.3g} (rtol "
+            f"{KERNEL_TOL['rtol']}, atol {KERNEL_TOL['atol']}), same bits "
+            f"twice, backward == plain autograd bit for bit; kernel "
+            f"{t_k:.4f} ms back to back, {t_f:.4f} ms with L2 flushed; "
+            f"byte bound {b_ms * 1e3:.2f} us = {b_ms / t_k:.1%} of the "
+            f"kernel's time; plain {t_p:.4f} ms, index_add_ {t_l:.4f} ms "
+            f"(device, CUDA graph) ({card})")
+        rows.append({"E": e, "D": d, "N": n, "max_abs_err": err, "ms": t_k,
+                     "ms_l2_flushed": t_f, "bound_ms": b_ms, "plain_ms": t_p,
+                     "library_ms": t_l})
+    return rows
+
+
+def phase_dense_kernel(data_dir: str, card):
+    """Phase 6b: the umls-sized KG with the kernel on every hop. Returns
+    the kernel's rows at the dense calls and its launches per batch and
+    step."""
+    from redgnn_tpu_torch.models.redgnn import hop_plan
+    from redgnn_tpu_torch.ops.segment_sorted import segment_sum_sorted_checked
+    from redgnn_tpu_torch.train.loop import softmax_ce_loss
+
+    over = dict(segment_impl="pallas", scan_chunk=UMLS_TRAIN_STEPS)
+    kg, cfg, model, pred = build_slice(data_dir, "cuda", "umls", **over)
+    kinds = hop_plan(model.cfg, pred.graph, pred.caps, pred.batch)
+    n_dense = kinds.count("dense")
+    assert n_dense >= 1 and set(kinds) <= {"sort", "dense"}, kinds
+    per_batch = len(kinds) + n_dense  # 1 a sparse hop, 2 a dense one
+    queries = serving_queries(kg, N_BATCHES * pred.batch)
+    q0 = queries[:pred.batch]
+
+    # the dense calls' real inputs, serving and training
+    with torch.inference_mode():
+        calls = record_segment_sums(
+            lambda: model(pred.graph, *batch_tensors(pred, q0), pred.caps))
+    assert len(calls) == per_batch, (len(calls), per_batch)
+    dense_calls = calls[-2 * n_dense:]  # per hop: messages, live counts
+    assert {c[0].shape[1] for c in dense_calls} == \
+        {pred.batch * cfg.hidden_dim, pred.batch}
+    serve_rows = dense_kernel_check(dense_calls, kg.n_ent, "[6b] serving",
+                                    card)
+    del calls, dense_calls  # ~400 MB of recorded inputs
+
+    plain = make_trainer(data_dir, "cuda", cfg,
+                         steps=UMLS_TRAIN_STEPS)
+    caps = exact_train_caps(plain)
+    tkinds = hop_plan(plain.model_cfg, plain.kg.graph, caps, cfg.n_batch)
+    t_dense = tkinds.count("dense")
+    per_step = len(tkinds) + t_dense
+    assert t_dense >= 1 and set(tkinds) <= {"sort", "dense"}, tkinds
+
+    def one_forward():
+        subs, rels, objs, qmask = step_tensors(plain, 0)
+        scores, _ = plain.model(plain.kg.graph, subs, rels, qmask, caps)
+        softmax_ce_loss(scores, objs, qmask)
+
+    calls = record_segment_sums(one_forward)
+    assert len(calls) == per_step, (len(calls), per_step)
+    train_rows = dense_kernel_check(calls[-2 * t_dense:], kg.n_ent,
+                                    "[6b] training", card)
+    del calls
+    log(f"[6b] hops: serving (batch {pred.batch}) {kinds}, caps edge "
+        f"{pred.caps.edge_caps}; training (batch {cfg.n_batch}) {tkinds}, "
+        f"caps edge {caps.edge_caps}")
+
+    # the main path of this phase: 8 served batches, counted
+    timed_batches(pred, queries, 1)  # warm-up, not counted
+    segment_sum_sorted_checked.launches = 0
+    times, peak = timed_batches(pred, queries, N_BATCHES)
+    launches = segment_sum_sorted_checked.launches
+    assert launches == per_batch * N_BATCHES, (launches, per_batch)
+    log(f"[6b] served {N_BATCHES} batches of {pred.batch} through the "
+        f"kernel: per-batch ms {[round(t, 3) for t in times]}; mean "
+        f"{np.mean(times):.3f} ms; {launches} kernel launches (= "
+        f"({len(kinds) - n_dense} sparse + 2 x {n_dense} dense) x "
+        f"{N_BATCHES}); max_memory_allocated {peak} B ({card})")
+    profile_batches(pred, queries[:2 * pred.batch], card)
+    batch_card_vs_cpu(model, pred, q0, "[6b]")
+    step_card_vs_cpu(data_dir, plain, caps, f"[6b] hops {tkinds}:")
+
+    # two runs of 4 steps from one seed end at the same bits
+    ends = []
+    for _ in range(2):
+        tr = make_trainer(data_dir, "cuda", cfg, steps=4)
+        tr.train_epoch(0)
+        assert int(tr.opt_state["count"]) == 4
+        ends.append(tr._flat.clone())
+    assert torch.equal(ends[0], ends[1]), "two runs of 4 steps differ"
+    log(f"[6b] two runs of 4 train steps (dropout {cfg.dropout}): "
+        f"parameters bit-equal")
+
+    trainer = make_trainer(data_dir, "cuda", cfg,
+                           steps=UMLS_TRAIN_STEPS)
+    segment_sum_sorted_checked.launches = 0
+    train_steps_check(trainer, UMLS_TRAIN_STEPS, "[6b]", card)
+    train_launches = segment_sum_sorted_checked.launches
+    assert train_launches == 2 * UMLS_TRAIN_STEPS * per_step, train_launches
+    log(f"[6b] {train_launches} kernel launches over 2 x "
+        f"{UMLS_TRAIN_STEPS} steps (= ({len(tkinds) - t_dense} sparse + "
+        f"2 x {t_dense} dense) a step)")
+    profile_steps(trainer, trainer.train_caps, card)
+    return {"serve": serve_rows, "train": train_rows,
+            "launches": launches, "launches_per_batch": per_batch,
+            "train_launches": train_launches,
+            "launches_per_step": per_step}
+
+
+def phase_family_defaults(data_dir: str, card):
+    """Phase 6c: the family-sized KG at the registry's defaults."""
+    from redgnn_tpu_torch.models.redgnn import hop_plan
+
+    kg, cfg, model, pred = build_slice(data_dir, "cuda", "family")
+    assert (model.cfg.dedup_impl, model.cfg.segment_impl,
+            model.cfg.dense_hops) == ("auto", "xla", True)
+    kinds = hop_plan(model.cfg, pred.graph, pred.caps, pred.batch)
+    assert "bitmap" in kinds, kinds
+    log(f"[6c] family-sized KG at registry defaults: hops {kinds}")
+    batch_card_vs_cpu(model, pred, serving_queries(kg, pred.batch), "[6c]")
+    tr = make_trainer(data_dir, "cuda", cfg, steps=4)
+    caps = exact_train_caps(tr)
+    tkinds = hop_plan(tr.model_cfg, tr.kg.graph, caps, cfg.n_batch)
+    # a bitmap hop past the first: the packed gather's backward runs
+    assert "bitmap" in tkinds[1:], tkinds
+    step_card_vs_cpu(data_dir, tr, caps, f"[6c] hops {tkinds}:",
+                     SCAN_GRAD_RTOL, SCAN_GRAD_ATOL_REL)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script "
@@ -818,14 +1207,22 @@ def main() -> int:
     phase_build()
     with tempfile.TemporaryDirectory() as tmp:
         write_synthetic_kg(tmp)
-        kg, _, model, pred = build_slice(tmp, "cuda")
+        kg, _, model, pred = build_slice(tmp, "cuda", **KERNEL_SLICE)
         queries = serving_queries(kg, N_BATCHES * pred.batch)
         kernel = phase_kernel(pred, queries[:pred.batch], card)
         kernel["launches"] = phase_slice(kg, model, pred, queries, card)
         kernel["train_launches"], kernel["train_hops"] = phase_train(tmp,
                                                                      card)
-    kernel["max_abs_err"] = max([kernel["max_abs_err"]] + [
-        r["max_abs_err"] for r in kernel["train_hops"]])
+        phase_family_defaults(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_umls_sized_kg(tmp)
+        phase_defaults(tmp, card)
+        kernel["dense"] = phase_dense_kernel(tmp, card)
+    kernel["max_abs_err"] = max(
+        [kernel["max_abs_err"]]
+        + [r["max_abs_err"] for r in kernel["train_hops"]]
+        + [r["max_abs_err"] for k in ("serve", "train")
+           for r in kernel["dense"][k]])
     log(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,7 +1,10 @@
-"""Training CLI of the port (static transductive task).
+"""Training CLI of the port (static tasks).
 
     python -m redgnn_tpu_torch.cli.train --task transductive \
         --data_path <dir with entities.txt, relations.txt, facts.txt, ...>
+    python -m redgnn_tpu_torch.cli.train --task inductive \
+        --data_path <DIR; reads DIR and DIR_ind, each with entities.txt,
+                     relations.txt, train.txt, valid.txt, test.txt>
 
 Port of ``redgnn_tpu/cli/train.py``. Per-dataset tuned hyperparameters
 load from the config registry (`redgnn_tpu_torch.utils.config`, keyed by
@@ -11,8 +14,8 @@ which raises without a card; ``--device cpu`` trains on the host). The
 first line printed is the resolved config as JSON, the last one
 ``BEST {...}``.
 
-Not ported yet (each exits with a message): the inductive,
-interpolation and extrapolation tasks, ``--model xerte|simple``,
+Not ported yet (each exits with a message): the interpolation and
+extrapolation tasks, ``--model xerte|simple``,
 ``--mesh``, ``--distributed``, ``--hpo``, ``--eval_splits``,
 ``--sqlite`` / ``--results_dir`` logging and ``--attention_stats``.
 """
@@ -57,7 +60,8 @@ def parse_overrides(pairs, cfg):
 
 def _refuse_unported(args) -> None:
     unported = {
-        f"--task {args.task}": args.task != "transductive",
+        f"--task {args.task}": args.task not in ("transductive",
+                                                  "inductive"),
         f"--model {args.model}": args.model != "redgnn",
         "--mesh": args.mesh is not None,
         "--distributed": args.distributed,
@@ -107,7 +111,6 @@ def main(argv=None):
 
     import torch
 
-    from redgnn_tpu_torch.graph.kg import StaticKG
     from redgnn_tpu_torch.train.loop import StaticTrainer
     from redgnn_tpu_torch.utils.checkpoint import EXT, load_latest
     from redgnn_tpu_torch.utils.config import dataset_config
@@ -117,11 +120,18 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     dataset = os.path.basename(args.data_path.rstrip("/"))
-    cfg = dataset_config("static_transductive", dataset)
+    cfg = dataset_config(f"static_{args.task}", dataset)
     if args.seed is not None:
         cfg = dataclasses.replace(cfg, seed=args.seed)
     cfg = parse_overrides(args.set, cfg)
-    kg = StaticKG.load(args.data_path, device=args.device)
+    if args.task == "transductive":
+        from redgnn_tpu_torch.graph.kg import StaticKG
+
+        kg = StaticKG.load(args.data_path, device=args.device)
+    else:
+        from redgnn_tpu_torch.graph.inductive import InductiveKG
+
+        kg = InductiveKG.load(args.data_path, device=args.device)
     trainer = StaticTrainer(kg, cfg)
     print(json.dumps(dataclasses.asdict(cfg)))
     trainer.timer.enabled = args.timer

@@ -1,4 +1,4 @@
-// Sorted-segment sum on Hopper (sm_90a), v3.
+// Sorted-segment sum on Hopper (sm_90a), v3 (+ column blocks).
 //
 // Replaces: redgnn_tpu/ops/segment_pallas.py:segment_sum_pallas (the
 // Pallas TPU kernel at segment_pallas.py:145). It computes
@@ -39,6 +39,14 @@
 //    that), and each lane keeps kRowsAhead rows of loads ahead of the adds.
 //    Other D, or a misaligned pointer, take the same kernel with 4-byte
 //    loads (G = 16). Wider rows take several passes over the columns.
+//  * Few segments, wide rows (a dense hop: 135 segments, D = b*d = 960 or
+//    2400): 9 blocks would walk 10-25 column passes each on 132 SMs. The
+//    grid's second dimension spreads the passes: block (x, y) takes passes
+//    y, y + gridDim.y, ... of its segments' columns, and repeats the
+//    search and the id pass, which are small beside the rows. Columns are
+//    disjoint between blocks, so the order of every sum is unchanged. The
+//    entry point takes as many column blocks as passes while the launch
+//    stays within kColBlocks blocks; at D <= 48 that is 1, the old grid.
 //  * Deterministic: every sum is taken in one fixed order (edge order in a
 //    share, then shares in order), so two calls give the same bits.
 //  * 64 registers, no spills: four blocks of 256 threads (50% occupancy)
@@ -62,6 +70,8 @@ constexpr int kSegs = 16;  // segments a block owns
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsAhead = 2;  // rows a lane loads ahead of its adds
+// Blocks a launch may spread its column passes over (4 per SM on 132 SMs).
+constexpr int kColBlocks = 528;
 // Blocks per SM that __launch_bounds__ asks for: half the SM's 2048
 // threads, so 64 registers a thread.
 constexpr int kMinBlocks = 2048 / 2 / kThreads;
@@ -150,7 +160,7 @@ segment_sum_sorted_kernel(const float* __restrict__ data,
   const int a = min(e_lo + w * chunk, e_hi);  // the worker's share [a, b)
   const int b = min(a + chunk, e_hi);
 
-  for (int c0 = 0; c0 < dim; c0 += kPass) {
+  for (int c0 = blockIdx.y * kPass; c0 < dim; c0 += gridDim.y * kPass) {
     bool on[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) on[c] = c0 + (gl + G * c) * kWidth < dim;
@@ -259,9 +269,14 @@ segment_sum_sorted_kernel(const float* __restrict__ data,
 }
 
 template <typename V, int G, int C>
-void launch(unsigned grid, cudaStream_t stream, const float* data,
+void launch(unsigned grid_x, cudaStream_t stream, const float* data,
             const int* seg, const long long* limit, float* out, int n_edges,
             int dim, int n_seg, int block_nodes) {
+  constexpr int kPass = G * C * (int)(sizeof(V) / sizeof(float));
+  const int passes = (dim + kPass - 1) / kPass;
+  const int room = kColBlocks / (int)grid_x;
+  const dim3 grid(grid_x, (unsigned)(passes < room ? passes
+                                                   : (room > 1 ? room : 1)));
   if (limit != nullptr) {
     segment_sum_sorted_kernel<V, G, C, true><<<grid, kThreads, 0, stream>>>(
         data, seg, limit, out, n_edges, dim, n_seg, block_nodes);
@@ -277,8 +292,9 @@ void launch(unsigned grid, cudaStream_t stream, const float* data,
 // `limit` may be null (no kmax). `vec` asks for float4 loads (needs
 // D % 4 == 0 and a 16-byte aligned `data`), as the wrapper's launch plan
 // (ops/segment_sorted.py:_launch_plan) chooses; the grid is one block per
-// kSegs segments. Launches on `stream` and returns cudaGetLastError() of
-// the launch (0 = cudaSuccess), or cudaErrorInvalidValue for arguments it
+// kSegs segments, times the column blocks that `launch` picks. Launches
+// on `stream` and returns cudaGetLastError() of the launch
+// (0 = cudaSuccess), or cudaErrorInvalidValue for arguments it
 // refuses: more than INT_MAX - kThreads edges (positions are int, and the
 // strides need kThreads of headroom), a limit without block_nodes, or
 // `vec` on rows it cannot load as float4.

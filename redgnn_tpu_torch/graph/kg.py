@@ -74,6 +74,10 @@ class DeviceGraph:
         return self.rel.shape[0]
 
     @property
+    def n_ent(self) -> int:
+        return self.rowptr.shape[0] - 1
+
+    @property
     def has_dense(self) -> bool:
         return self.tsrc is not None
 

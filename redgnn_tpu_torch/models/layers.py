@@ -1,12 +1,15 @@
 """Propagation building blocks: relation-conditioned attention + GRU gate.
 
-Port of ``redgnn_tpu/models/layers.py`` (sparse hop and GRU gate):
+Port of ``redgnn_tpu/models/layers.py``:
     message  m_e = h_src + h_rel
     alpha_e  = sigmoid(w_a . ReLU(W_s h_src + W_r h_rel + W_q h_qrel + b_q) + b_a)
     agg_v    = sum over edges e with dst(e)=v of alpha_e * m_e
     h'_v     = act(W_h agg_v)
 The aggregation runs through `ops.segment.segment_sum`, which sends
-``segment_impl='pallas'`` to the sorted-segment-sum kernel.
+``segment_impl='pallas'`` to the sorted-segment-sum kernel. A layer runs
+one hop either over a sparse frontier (`RelAttnLayer.forward`) or over
+the whole tail-sorted edge table, batch-shared (`RelAttnLayer.dense`);
+both use one parameter set.
 
 Parameters are created on the CPU with the JAX package's init bounds,
 drawn from the ``torch.Generator`` passed in (torch's default one if
@@ -75,22 +78,32 @@ class RelAttnLayer(nn.Module):
         q_rel: torch.Tensor,        # (B,) query relation per batch element
         frontier: Frontier,
         node_cap: int,
+        edges_sorted: bool = True,
     ) -> torch.Tensor:
+        """``edges_sorted`` says that the frontier's edges are sorted by
+        ``dst`` (sort dedup); bitmap-dedup frontiers are not, and only
+        ``segment_impl='xla'`` takes them."""
         src, dst, rel, batch, valid = (
             frontier.src, frontier.dst, frontier.rel, frontier.batch,
             frontier.edge_valid,
         )
-        # The frontier gives every padding edge the last frontier slot as
-        # src. Their messages are masked below, so the row they read does
-        # not matter, but the gather's backward
-        # (index_put_(accumulate=True): equal indices are added one after
-        # another by one warp) would walk thousands of them in a row.
-        # Spread them over the rows instead; nothing that leaves the layer
-        # changes.
-        spread = torch.arange(src.shape[0], device=src.device) \
-            % hidden_prev.shape[0]
-        src = torch.where(valid, src.long(), spread)
-        hs = hidden_prev[src]                              # (E, D)
+        if frontier.src_values is not None:
+            # h_src was fetched inside the frontier's metadata gather,
+            # whose backward is a scatter-free range difference of the
+            # gradient's prefix sum (ops/gather.gather_rows_packed)
+            hs = frontier.src_values                       # (E, D)
+        else:
+            # The frontier gives every padding edge the last frontier slot
+            # as src. Their messages are masked below, so the row they
+            # read does not matter, but the gather's backward
+            # (index_put_(accumulate=True): equal indices are added one
+            # after another by one warp) would walk thousands of them in
+            # a row. Spread them over the rows instead; nothing that
+            # leaves the layer changes.
+            spread = torch.arange(src.shape[0], device=src.device) \
+                % hidden_prev.shape[0]
+            src = torch.where(valid, src.long(), spread)
+            hs = hidden_prev[src]                          # (E, D)
         hr = take_rows(self.rela_embed, rel)               # (E, D)
         h_qr = take_rows(take_rows(self.rela_embed, q_rel), batch)
 
@@ -102,18 +115,83 @@ class RelAttnLayer(nn.Module):
         # The frontier gives all padding edges one dst (the first free slot,
         # or node_cap-1) and zero messages; send them past the end instead,
         # so the sum drops them rather than one segment walking them all.
-        # Valid edges form a prefix of the dst-sorted list, so the ids stay
-        # sorted.
+        # In a dst-sorted list the valid edges form a prefix, so the ids
+        # stay sorted; a bitmap frontier's list is unsorted either way.
         seg = torch.where(valid, dst, node_cap)
 
         agg = segment_sum(
             message,
             seg,
             num_segments=node_cap,
-            indices_are_sorted=True,  # sort-dedup frontiers only
+            indices_are_sorted=edges_sorted,
             impl=self.segment_impl,
         )
         return ACTIVATIONS[self.act](self.W_h(agg))
+
+    def dense(self, hidden_dense: torch.Tensor, visited: torch.Tensor,
+              q_rel: torch.Tensor, tsrc: torch.Tensor, trel: torch.Tensor,
+              ttail: torch.Tensor, tail_rowptr: torch.Tensor,
+              dense_agg: str = "sorted_scatter"):
+        """One hop over the ENTIRE tail-sorted edge table, batch-shared
+        (saturated-frontier regime).
+
+        hidden_dense: (n_ent, b, d); visited: (n_ent, b) bool. Returns
+        (act(W_h agg) (n_ent, b, d), new_visited (n_ent, b), live-edge
+        count). ``dense_agg='sorted_scatter'`` sums the (E, b*d) messages
+        and the (E, b) live flags by ``ttail`` through `segment_sum` with
+        the layer's ``segment_impl`` (``ttail`` is ascending, so 'pallas'
+        is the sorted-segment-sum kernel); ``'cumsum'`` takes differences
+        of a prefix sum at the static ``tail_rowptr`` ranges.
+
+        This differs from the JAX package, whose dense hop always takes the
+        plain scatter-add (``impl="xla"``, `redgnn_tpu/models/layers.py:206,209`)
+        whatever ``segment_impl`` says: there the kernel never sees a dense
+        hop. The sums are the same function either way; with
+        ``segment_impl='xla'`` (the default) the two packages agree in route
+        as well."""
+        d = self.rela_embed.shape[1]
+        n, b = visited.shape
+        e_all = tsrc.shape[0]
+
+        # pack the visited bit: one row gather per edge serves the batch
+        packed = torch.cat(
+            [hidden_dense, visited[:, :, None].to(hidden_dense.dtype)], -1)
+        g = packed[tsrc.long()]                       # (E, b, d+1)
+        hs = g[..., :d]
+        live = g[..., d] > 0.5                        # (E, b)
+
+        hr = take_rows(self.rela_embed, trel)         # (E, d)
+        h_qr = self.rela_embed[q_rel.long()]          # (b, d)
+
+        # the attention terms factor: the hr / h_qr projections are shared
+        # over the batch / the edges; no (E, b, 3d) concat materializes
+        logits = self.w_alpha(torch.relu(
+            self.Ws_attn(hs) + self.Wr_attn(hr)[:, None, :]
+            + self.Wqr_attn(h_qr)[None, :, :]))
+        alpha = torch.sigmoid(logits)
+        message = (hs + hr[:, None, :]) * alpha
+        message = torch.where(live[..., None], message, 0.0)
+
+        if dense_agg == "cumsum":
+            lo, hi = tail_rowptr[:-1].long(), tail_rowptr[1:].long()
+            pref = torch.cat([message.new_zeros((1, b, d)),
+                              torch.cumsum(message, 0)])
+            agg = pref[hi] - pref[lo]
+            cnt = torch.cat([
+                torch.zeros((1, b), dtype=torch.int32, device=live.device),
+                torch.cumsum(live, 0, dtype=torch.int32)])
+            new_visited = (cnt[hi] - cnt[lo]) > 0
+        elif dense_agg == "sorted_scatter":
+            agg = segment_sum(message.reshape(e_all, b * d), ttail, n,
+                              indices_are_sorted=True,
+                              impl=self.segment_impl).reshape(n, b, d)
+            new_visited = segment_sum(
+                live.to(torch.float32), ttail, n, indices_are_sorted=True,
+                impl=self.segment_impl) > 0
+        else:
+            raise ValueError(f"unknown dense_agg {dense_agg!r}")
+        n_live = torch.sum(live).to(torch.int32)
+        return ACTIVATIONS[self.act](self.W_h(agg)), new_visited, n_live
 
 
 class GRUGate(nn.Module):

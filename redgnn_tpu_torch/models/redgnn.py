@@ -1,15 +1,20 @@
 """RED-GNN: query-dependent relational digraph propagation.
 
-Port of ``redgnn_tpu/models/redgnn.py`` (sparse hops). The L-hop loop —
-expansion, attention, aggregation, gating, scoring — runs on the model's
-device with static per-hop capacities and no host round-trip; entities
-never reached within L hops score 0
-(`Static/transductive/models.py:86-88`). Every op on the path
-differentiates as the JAX package's does; dropout acts on each hop's new
-hidden state before the gate, in training only.
+Port of ``redgnn_tpu/models/redgnn.py``. The L-hop loop — expansion,
+attention, aggregation, gating, scoring — runs on the model's device with
+static per-hop capacities and no host round-trip; entities never reached
+within L hops score 0 (`Static/transductive/models.py:86-88`). A hop
+expands a sparse frontier (sort or bitmap dedup, `_resolve_dedup`) until
+the plan switches to dense mode: a batch-shared (n_ent, b, d) layout over
+the graph's tail-sorted edge table. Every op on the path differentiates
+as the JAX package's does; dropout acts on each hop's new hidden state
+before the gate, in training only.
 
-Not ported yet: bitmap dedup, dense-mode hops, edge sharding, bfloat16
-compute.
+No parameter depends on the entity count: it is read from the graph of
+each call, so one model scores the training graph and an inductive test
+graph with another vocabulary.
+
+Not ported yet: edge sharding (``edge_axis``), bfloat16 compute.
 """
 
 from __future__ import annotations
@@ -31,12 +36,15 @@ from redgnn_tpu_torch.ops.frontier import (
     SENTINEL,
     align_old_to_new,
     expand_frontier,
+    scatter_drop,
 )
 from redgnn_tpu_torch.utils.device import resolve_device
 
 
 @dataclass(frozen=True)
 class ModelConfig:
+    # kept so the config matches the JAX package's; `forward` does not read
+    # it: the entity count is the graph's, and no parameter depends on it
     n_ent: int
     n_rel: int
     hidden_dim: int = 48
@@ -47,9 +55,16 @@ class ModelConfig:
     segment_impl: str = "xla"
     # node-dedup scheme per hop: 'sort', 'bitmap' or 'auto' (_resolve_dedup)
     dedup_impl: str = "auto"
+    # bitmap hops fetch hidden[src] inside the frontier's metadata gather
+    # and differentiate it as a range difference of the gradient's prefix
+    # sum (ops/gather.gather_rows_packed): gradient noise O(total * eps);
+    # set False for strict gradient comparisons
+    scan_src_backward: bool = True
     # dense-mode hops once a hop's edge cap reaches dense_switch * b * |E|
+    # (needs the graph's tail-sorted view, DeviceGraph.from_csr)
     dense_hops: bool = True
     dense_switch: float = 0.25
+    dense_agg: str = "sorted_scatter"  # or 'cumsum' (models/layers.py)
 
 
 def _resolve_dedup(dedup_impl: str, key_space: int, edge_cap: int,
@@ -72,6 +87,25 @@ def _resolve_dedup(dedup_impl: str, key_space: int, edge_cap: int,
             f"segment_impl={segment_impl!r} requires dst-sorted edges; "
             "use dedup_impl='sort' (or 'auto')")
     return dedup_impl
+
+
+def hop_plan(cfg: ModelConfig, graph: DeviceGraph, caps: FrontierCaps,
+             b: int) -> list:
+    """The scheme of each hop of a batch of ``b`` queries, from the static
+    capacities alone: 'sort' or 'bitmap' for a sparse hop, 'dense' from
+    the first hop whose edge cap reaches ``dense_switch * b * |edges|``
+    on (the frontier has saturated), if the graph has its tail-sorted
+    view."""
+    dense_from = cfg.n_layer
+    if cfg.dense_hops and graph.has_dense:
+        for i in range(cfg.n_layer):
+            if caps.edge_caps[i] >= cfg.dense_switch * b * graph.n_edges:
+                dense_from = i
+                break
+    return [_resolve_dedup(cfg.dedup_impl, b * graph.n_ent,
+                           caps.edge_caps[i], cfg.segment_impl)
+            for i in range(dense_from)] + ["dense"] * (cfg.n_layer
+                                                       - dense_from)
 
 
 def _dropout(x: torch.Tensor, rate: float,
@@ -137,20 +171,11 @@ class RedGNN(nn.Module):
         dev = self.device
         b = subs.shape[0]
         d = cfg.hidden_dim
-
-        if cfg.dense_hops and graph.has_dense:
-            n_all_edges = int(graph.tail.shape[0])
-            for i in range(cfg.n_layer):
-                if caps.edge_caps[i] >= cfg.dense_switch * b * n_all_edges:
-                    raise NotImplementedError(
-                        f"hop {i} would run in dense mode (edge cap "
-                        f"{caps.edge_caps[i]} >= {cfg.dense_switch} * {b} * "
-                        f"{n_all_edges}); dense hops are not ported — set "
-                        "dense_hops=False")
+        n_ent = graph.n_ent
 
         # initial frontier: one node per query, key = b * n_ent + head
         keys0 = (subs.to(torch.int32)
-                 + torch.arange(b, dtype=torch.int32, device=dev) * cfg.n_ent)
+                 + torch.arange(b, dtype=torch.int32, device=dev) * n_ent)
         node_keys = torch.where(qmask, keys0, SENTINEL)
         hidden = torch.zeros((b, d), device=dev)
         h0 = torch.zeros((b, d), device=dev)
@@ -158,22 +183,58 @@ class RedGNN(nn.Module):
 
         aux = {"edge_overflow": [], "node_overflow": [], "num_nodes": [],
                "num_edges": []}
-        for i in range(cfg.n_layer):
-            dedup = _resolve_dedup(cfg.dedup_impl, b * cfg.n_ent,
-                                   caps.edge_caps[i], cfg.segment_impl)
+
+        dense_state = None  # (hidden (N, b, d), visited (N, b))
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+
+        for i, scheme in enumerate(hop_plan(cfg, graph, caps, b)):
+            layer = getattr(self, f"layer_{i}")
+            if scheme == "dense":
+                if dense_state is None:
+                    # sparse frontier -> (entity, batch) layout; pads are
+                    # dropped (their slot lies past the end)
+                    valid = node_keys != SENTINEL
+                    keys = node_keys.long()
+                    flat = torch.where(
+                        valid, (keys % n_ent) * b + keys // n_ent, n_ent * b)
+                    dense_state = (
+                        scatter_drop(n_ent * b, flat, hidden,
+                                     0).view(n_ent, b, d),
+                        scatter_drop(n_ent * b, flat, valid,
+                                     False).view(n_ent, b))
+                hd, vis = dense_state
+                new_hidden, new_vis, n_live = layer.dense(
+                    hd, vis, rels, graph.tsrc, graph.trel, graph.ttail,
+                    graph.tail_rowptr, cfg.dense_agg)
+                if drop:
+                    new_hidden = _dropout(new_hidden, cfg.dropout, generator)
+                # GRU carry: hd is zero at never-visited nodes, exactly
+                # the align_old_to_new semantics (new nodes start at 0)
+                hdn = self.gate(new_hidden, hd)
+                hdn = torch.where(new_vis[..., None], hdn, 0.0)
+                dense_state = (hdn, new_vis)
+                aux["edge_overflow"].append(false)
+                aux["node_overflow"].append(false)
+                aux["num_nodes"].append(torch.sum(new_vis).to(torch.int32))
+                aux["num_edges"].append(n_live)
+                continue
             fr = expand_frontier(
                 graph.rowptr, graph.rel, graph.tail,
-                cfg.n_ent, node_keys,
+                n_ent, node_keys,
                 edge_cap=caps.edge_caps[i],
                 node_cap=caps.node_caps[i + 1],
-                dedup_impl=dedup,
-                key_space=b * cfg.n_ent,
+                dedup_impl=scheme,
+                key_space=b * n_ent,
+                # fetch h_src inside the expansion's metadata row gather
+                node_values=(hidden if scheme == "bitmap"
+                             and cfg.scan_src_backward else None),
             )
-            layer = getattr(self, f"layer_{i}")
-            new_hidden = layer(hidden, rels, fr, caps.node_caps[i + 1])
+            new_hidden = layer(hidden, rels, fr, caps.node_caps[i + 1],
+                               edges_sorted=(scheme == "sort"))
             # carry GRU state: previous nodes keep h0, new nodes start at 0
             h0 = align_old_to_new(node_keys, fr.node_keys, h0,
-                                  caps.node_caps[i + 1])
+                                  caps.node_caps[i + 1],
+                                  key_prefix=fr.key_prefix)
             if drop:
                 new_hidden = _dropout(new_hidden, cfg.dropout, generator)
             hidden = self.gate(new_hidden, h0)
@@ -185,11 +246,16 @@ class RedGNN(nn.Module):
             aux["num_nodes"].append(fr.num_nodes)
             aux["num_edges"].append(fr.num_edges)
 
-        scores = self.W_final(hidden)[:, 0]  # (node_cap_L,)
-        valid = node_keys != SENTINEL
-        # a key is already the flat (batch, entity) index b * n_ent + ent
-        flat = torch.where(valid, node_keys.long(), b * cfg.n_ent)
-        scores_all = torch.zeros(b * cfg.n_ent + 1, device=dev)
-        scores_all[flat] = torch.where(valid, scores, 0.0)
-        scores_all = scores_all[:-1].view(b, cfg.n_ent)
+        if dense_state is not None:
+            hd, vis = dense_state
+            scores_all = self.W_final(hd)[:, :, 0].T    # (b, n_ent)
+            scores_all = torch.where(vis.T, scores_all, 0.0)
+        else:
+            scores = self.W_final(hidden)[:, 0]  # (node_cap_L,)
+            valid = node_keys != SENTINEL
+            # a key is already the flat (batch, entity) index b * n_ent + ent
+            flat = torch.where(valid, node_keys.long(), b * n_ent)
+            scores_all = scatter_drop(
+                b * n_ent, flat, torch.where(valid, scores, 0.0),
+                0).view(b, n_ent)
         return scores_all, {k: torch.stack(v) for k, v in aux.items()}

@@ -1,19 +1,19 @@
 """Fixed-shape, fully on-device frontier expansion.
 
-Port of ``redgnn_tpu/ops/frontier.py`` with ``dedup_impl='sort'``. The
-frontier is a flat array of node keys (``batch_idx * n_ent + entity``)
-padded to a per-hop capacity with SENTINEL; incident edges are enumerated
-from a degree cumsum over the device-resident CSR; next-hop nodes are
-deduplicated by a stable sort + adjacent compare, which leaves the edge
-list sorted by destination for the sorted-segment-sum kernel.
+Port of ``redgnn_tpu/ops/frontier.py``. The frontier is a flat array of
+node keys (``batch_idx * n_ent + entity``) padded to a per-hop capacity
+with SENTINEL; incident edges are enumerated from a degree cumsum over
+the device-resident CSR. Next-hop nodes are deduplicated either by a
+stable sort + adjacent compare (``dedup_impl='sort'``), which leaves the
+edge list sorted by destination for the sorted-segment-sum kernel, or by
+a presence bitmap + prefix sum over the (batch x entity) key space
+(``'bitmap'``), which leaves the edges in expansion order.
 
-Every field of a `Frontier` equals the JAX package's for the same input.
-Scatters never raise on out-of-range slots (as JAX's ``mode="drop"``):
-dropped writes go to one spare slot past the end that is cut off, so the
-expansion needs no host synchronisation.
-
-Not ported yet: bitmap dedup (and its ``key_prefix``), ``etime``,
-``extra_edge_slot``, ``edge_mask_fn`` and ``node_values``.
+Every integer and boolean field of a `Frontier` equals the JAX package's
+for the same input. Scatters never raise on out-of-range slots (as JAX's
+``mode="drop"``): dropped writes go to one spare slot past the end that
+is cut off, so the expansion needs no host synchronisation. Index
+arithmetic is int64 inside (JAX: int32; the values agree).
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from typing import NamedTuple
 
 import torch
 
+from redgnn_tpu_torch.ops.gather import gather_rows_packed
+
 # Padding key. Max int32 so that padded entries sort to the end.
 SENTINEL = 2 ** 31 - 1
 
@@ -29,7 +31,10 @@ SENTINEL = 2 ** 31 - 1
 class Frontier(NamedTuple):
     """One hop of expansion: the new node set and its incident edge list.
 
-    Edge arrays have length ``edge_cap`` and are sorted by ``dst``; node
+    Edge arrays have length ``edge_cap``. With ``dedup_impl='sort'`` they
+    are sorted by ``dst`` (what the 'scan' and 'pallas' segment sums
+    need); with ``'bitmap'`` they stay in expansion order (non-decreasing
+    ``src``). ``node_keys`` is sorted ascending in both schemes; node
     arrays have length ``node_cap``. Integer fields are int32 tensors,
     flags bool tensors, counts 0-dim int32 tensors."""
 
@@ -38,7 +43,7 @@ class Frontier(NamedTuple):
     num_nodes: torch.Tensor  # () count of valid (non-pad) nodes
     # --- edges ---
     src: torch.Tensor        # (edge_cap,) slot in the *previous* frontier
-    dst: torch.Tensor        # (edge_cap,) slot in node_keys (sorted asc)
+    dst: torch.Tensor        # (edge_cap,) slot in node_keys
     rel: torch.Tensor        # (edge_cap,) relation id
     batch: torch.Tensor      # (edge_cap,) query index within batch
     edge_id: torch.Tensor    # (edge_cap,) CSR slot of the fact edge
@@ -47,13 +52,18 @@ class Frontier(NamedTuple):
     # --- overflow diagnostics ---
     edge_overflow: torch.Tensor  # () bool — edge count exceeded edge_cap
     node_overflow: torch.Tensor  # () bool — node count exceeded node_cap
-    # fields of the unported variants, kept so the layout matches JAX
+    # bitmap dedup only: (key_space,) int32 key -> slot + 1 prefix table,
+    # so align_old_to_new is one gather instead of a binary search
     key_prefix: torch.Tensor | None = None
+    # (edge_cap,) per-edge timestamp, when ``etime`` is passed
     time: torch.Tensor | None = None
+    # (edge_cap, D) per-edge source-node values (hidden states), when
+    # ``node_values`` is passed (bitmap dedup only); differentiable in
+    # ``node_values`` (ops/gather.gather_rows_packed)
     src_values: torch.Tensor | None = None
 
 
-def _scatter_drop(size: int, idx: torch.Tensor, values: torch.Tensor,
+def scatter_drop(size: int, idx: torch.Tensor, values: torch.Tensor,
                   fill) -> torch.Tensor:
     """``full(size, fill).at[idx].set(values, mode="drop")`` for int64
     ``idx`` already mapped to ``size`` where the write must be dropped.
@@ -105,82 +115,140 @@ def expand_frontier_ranges(
     deg: torch.Tensor,         # (prev_cap,) edges per frontier node (0 for pads)
     edge_cap: int,
     node_cap: int,
-    extra_edge_slot: torch.Tensor | None = None,
+    extra_edge_slot: torch.Tensor | None = None,  # (prev_cap,) one extra edge
     edge_mask_fn=None,
     dedup_impl: str = "sort",
-    key_space: int | None = None,
-    etime: torch.Tensor | None = None,
-    node_values: torch.Tensor | None = None,
+    key_space: int | None = None,  # B * n_ent, required for 'bitmap'
+    etime: torch.Tensor | None = None,  # (n_edges,) timestamps (temporal)
+    node_values: torch.Tensor | None = None,  # (prev_cap, D) float32
 ) -> Frontier:
-    """Core expansion over per-node edge ranges (sort dedup)."""
-    if dedup_impl != "sort":
-        raise NotImplementedError(
-            f"dedup_impl={dedup_impl!r} is not ported; use 'sort'")
-    for name, arg in (("extra_edge_slot", extra_edge_slot),
-                      ("edge_mask_fn", edge_mask_fn), ("etime", etime),
-                      ("node_values", node_values)):
-        if arg is not None:
-            raise NotImplementedError(f"expand_frontier {name} is not ported")
+    """Core expansion over per-node edge ranges.
+
+    ``row_start`` / ``deg`` describe a contiguous CSR sub-row per frontier
+    node. ``extra_edge_slot`` appends one extra edge per valid node, as
+    the node's last slot (the always-included self-loop of a windowed
+    temporal graph). ``edge_mask_fn(edge_id, batch, rel) -> bool`` keeps
+    or drops edges BEFORE deduplication: masked edges generate no
+    frontier nodes. ``etime`` is gathered per edge into ``Frontier.time``.
+    ``node_values`` is fetched per edge at the expansion's own ``src``
+    into ``Frontier.src_values`` under bitmap dedup and silently dropped
+    under sort (which permutes the edges afterwards).
+
+    ``dedup_impl``: 'sort' (edges come out sorted by destination,
+    O(E log E)) or 'bitmap' (presence bitmap + prefix sum over
+    ``key_space``; edges stay in expansion order, O(key_space + E))."""
+    if dedup_impl not in ("sort", "bitmap"):
+        raise ValueError(f"dedup_impl must be 'sort' or 'bitmap', got "
+                         f"{dedup_impl!r}")
     dev = node_keys.device
     prev_cap = node_keys.shape[0]
     valid_node = node_keys != SENTINEL
     ent = torch.where(valid_node, node_keys % n_ent, 0)
     deg = deg.long()
-    cum = torch.cumsum(deg, 0)  # int64 (JAX: int32; values agree)
+    deg_eff = deg if extra_edge_slot is None else deg + valid_node.long()
+    cum = torch.cumsum(deg_eff, 0)
     total_edges = cum[-1]
-    start = cum - deg
+    start = cum - deg_eff
 
     e_idx = torch.arange(edge_cap, dtype=torch.int64, device=dev)
     # Owner of each output edge slot: every node with deg > 0 marks its
     # start (starts are strictly increasing, so marks never collide) and
     # a cummax fills the slots after it.
-    mark_at = torch.where((deg > 0) & (start < edge_cap), start, edge_cap)
-    marker = _scatter_drop(
+    mark_at = torch.where((deg_eff > 0) & (start < edge_cap), start, edge_cap)
+    marker = scatter_drop(
         edge_cap, mark_at, torch.arange(prev_cap, device=dev), 0)
     src = torch.cummax(marker, 0).values
     edge_valid = e_idx < total_edges
     src_c = torch.clamp(src, max=prev_cap - 1)
 
+    if dedup_impl != "bitmap":
+        node_values = None
     base = torch.where(valid_node, node_keys - ent, 0).long()
-    offset = row_start.long() - start
-    edge_id = torch.where(edge_valid, e_idx + offset[src_c], 0)
+    # every per-node value an edge needs, as one row table
+    if extra_edge_slot is not None:
+        node_tab = torch.stack([start, row_start.long(), deg,
+                                extra_edge_slot.long(), base], 1)
+    else:
+        node_tab = torch.stack([row_start.long() - start, base], 1)
+    if node_values is not None:
+        rows, src_values = gather_rows_packed(node_tab, node_values, src_c,
+                                              start, deg_eff)
+    else:
+        rows, src_values = node_tab[src_c], None
+    if extra_edge_slot is not None:
+        within = e_idx - rows[:, 0]
+        edge_id = torch.where(within < rows[:, 2], rows[:, 1] + within,
+                              rows[:, 3])
+        base_e = rows[:, 4]
+    else:
+        edge_id = e_idx + rows[:, 0]
+        base_e = rows[:, 1]
+    edge_id = torch.where(edge_valid, edge_id, 0)
     rel_e = erel[edge_id].long()
     tail_e = etail[edge_id].long()
-    base_e = base[src_c]
+    time_e = None if etime is None else etime[edge_id].long()
     batch_e = base_e // n_ent
+    if edge_mask_fn is not None:
+        edge_valid = edge_valid & edge_mask_fn(edge_id, batch_e, rel_e)
     tail_key = torch.where(edge_valid, base_e + tail_e, SENTINEL)
 
-    # Deduplicate destination keys: stable sort + adjacent-compare; pads
-    # (SENTINEL) land at the end.
-    order = torch.argsort(tail_key, stable=True)
-    sk = tail_key[order]
-    is_new = torch.ones_like(sk, dtype=torch.bool)
-    is_new[1:] = sk[1:] != sk[:-1]
-    uid = torch.cumsum(is_new, 0) - 1  # dense unique rank per edge
-    num_unique_valid = torch.sum(is_new & (sk != SENTINEL)).to(torch.int32)
-    node_overflow = num_unique_valid > node_cap
-
-    new_keys = _scatter_drop(
-        node_cap, torch.where(uid < node_cap, uid, node_cap),
-        sk.to(torch.int32), SENTINEL)
-    dst = torch.clamp(uid, max=node_cap - 1)
-    edge_valid_sorted = edge_valid[order] & (uid < node_cap)
+    if dedup_impl == "bitmap":
+        if key_space is None:
+            raise ValueError("dedup_impl='bitmap' needs key_space")
+        present = scatter_drop(
+            key_space, torch.clamp(tail_key, max=key_space),
+            torch.ones_like(edge_valid), False)
+        prefix = torch.cumsum(present, 0, dtype=torch.int32)
+        num_unique_valid = prefix[-1]
+        # an invalid edge (SENTINEL) reads the last prefix entry; its dst
+        # is node_cap - 1 and it stays invalid
+        uid = prefix[torch.clamp(tail_key, max=key_space - 1)].long() - 1
+        dst = torch.where(edge_valid, torch.clamp(uid, max=node_cap - 1),
+                          node_cap - 1)
+        slot = prefix.long() - 1
+        new_keys = scatter_drop(
+            node_cap, torch.where(present & (slot < node_cap), slot, node_cap),
+            torch.arange(key_space, dtype=torch.int32, device=dev), SENTINEL)
+        order = None
+        edge_valid_out = edge_valid & (uid < node_cap)
+    else:
+        # stable sort + adjacent-compare; pads (SENTINEL) land at the end
+        order = torch.argsort(tail_key, stable=True)
+        sk = tail_key[order]
+        is_new = torch.ones_like(sk, dtype=torch.bool)
+        is_new[1:] = sk[1:] != sk[:-1]
+        uid = torch.cumsum(is_new, 0) - 1  # dense unique rank per edge
+        num_unique_valid = torch.sum(
+            is_new & (sk != SENTINEL)).to(torch.int32)
+        new_keys = scatter_drop(
+            node_cap, torch.where(uid < node_cap, uid, node_cap),
+            sk.to(torch.int32), SENTINEL)
+        dst = torch.clamp(uid, max=node_cap - 1)
+        prefix = src_values = None
+        edge_valid_out = edge_valid[order] & (uid < node_cap)
+        src_c = src_c[order]
 
     def masked(x):
-        return torch.where(edge_valid_sorted, x[order], 0).to(torch.int32)
+        if x is None:
+            return None
+        x = x if order is None else x[order]
+        return torch.where(edge_valid_out, x, 0).to(torch.int32)
 
     return Frontier(
         node_keys=new_keys,
         num_nodes=num_unique_valid,
-        src=src_c[order].to(torch.int32),
+        src=src_c.to(torch.int32),
         dst=dst.to(torch.int32),
         rel=masked(rel_e),
         batch=masked(batch_e),
         edge_id=masked(edge_id),
-        edge_valid=edge_valid_sorted,
+        edge_valid=edge_valid_out,
         num_edges=total_edges.to(torch.int32),
         edge_overflow=total_edges > edge_cap,
-        node_overflow=node_overflow,
+        node_overflow=num_unique_valid > node_cap,
+        key_prefix=prefix,
+        time=masked(time_e),
+        src_values=src_values,
     )
 
 
@@ -193,17 +261,22 @@ def align_old_to_new(
 ) -> torch.Tensor:
     """Carry per-node state across a re-indexing hop.
 
-    Each old node has a self-loop, so it appears in the new frontier; its
-    new slot is found by binary search over the sorted new keys. New nodes
-    get zeros. An old key missing from the new frontier (its self-loop
-    clipped by an edge-cap overflow) is dropped rather than written into
-    another node's slot (`frontier.py:332-343` of the JAX package)."""
-    if key_prefix is not None:
-        raise NotImplementedError("align_old_to_new key_prefix (bitmap "
-                                  "dedup) is not ported")
+    Each old node has a self-loop, so it appears in the new frontier.
+    With a bitmap-dedup ``key_prefix`` its new slot is ``prefix[key] - 1``
+    (one gather); otherwise it is found by binary search over the sorted
+    new keys. New nodes get zeros. An old key missing from the new
+    frontier (its self-loop clipped by an edge-cap overflow; the prefix
+    then gives -1 or another node's slot) is dropped rather than written
+    into another node's slot (`frontier.py:332-343` of the JAX package):
+    the ``hit`` test sees the slot before any index does."""
     valid = old_keys != SENTINEL
-    pos = torch.searchsorted(new_keys, old_keys)
+    if key_prefix is not None:
+        safe = torch.where(valid, old_keys, 0).long()
+        pos = key_prefix[
+            torch.clamp(safe, max=key_prefix.shape[0] - 1)].long() - 1
+    else:
+        pos = torch.searchsorted(new_keys, old_keys)
     pos_c = torch.clamp(pos, 0, node_cap - 1)
     hit = valid & (pos >= 0) & (new_keys[pos_c] == old_keys)
-    return _scatter_drop(node_cap, torch.where(hit, pos_c, node_cap),
-                         old_values, 0)
+    return scatter_drop(node_cap, torch.where(hit, pos_c, node_cap),
+                        old_values, 0)

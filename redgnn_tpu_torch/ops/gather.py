@@ -11,13 +11,19 @@ it would round the gradient to 10 mantissa bits, so the backward refuses
 to run on a CUDA device while ``torch.backends.cuda.matmul.allow_tf32`` is
 set.
 
-Not ported yet: ``take_rows_sorted`` and ``gather_rows_packed`` (they
-serve bitmap-dedup hops).
+``take_rows_sorted`` and ``gather_rows_packed`` serve bitmap-dedup hops,
+whose index vector is non-decreasing: their backward is a difference of
+the gradient's prefix sum instead of a scatter-add. The prefix sum
+(``torch.cumsum``, float32) cancels large partial sums, so those
+gradients carry O(total magnitude * eps) noise: fine for training, not
+for a strict gradient comparison (``scan_src_backward=False`` there).
 """
 
 from __future__ import annotations
 
 import torch
+
+from redgnn_tpu_torch.ops.segment import _segment_sum_scan
 
 # Largest fp32 one-hot (elements) the matmul backward may materialize:
 # 32M elements = 128 MB, the JAX package's budget.
@@ -60,3 +66,91 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.requires_grad and torch.is_grad_enabled():
         return _TakeRows.apply(table, idx)
     return table[idx.long()]
+
+
+class _TakeRowsSorted(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        r = ctx.rows
+        flat_g = g.reshape(idx.shape[0], -1)
+        d_table = _segment_sum_scan(flat_g, idx, r)
+        return d_table.reshape((r,) + g.shape[1:]).to(g.dtype), None
+
+
+def take_rows_sorted(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for NON-DECREASING ``idx``, with a prefix-sum
+    backward (`ops.segment._segment_sum_scan`) in place of the
+    scatter-add. Sortedness is not checked: a wrong claim mis-sums the
+    gradient without a word.
+
+    table: (R, D) float tensor; idx: (E,) int tensor, non-decreasing,
+    values in [0, R)."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return _TakeRowsSorted.apply(table, idx)
+    return table[idx.long()]
+
+
+class _GatherRowsPacked(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, meta, values, idx, start, count):
+        ctx.save_for_backward(start, count)
+        i = idx.long()
+        rows = meta[i]
+        ctx.mark_non_differentiable(rows)
+        return rows, values[i]
+
+    @staticmethod
+    def backward(ctx, _g_meta, g_vals):
+        start, count = ctx.saved_tensors
+        start, count = start.long(), count.long()
+        e_cap = g_vals.shape[0]
+        p = torch.cumsum(g_vals.to(torch.float32), 0)
+        # clip before indexing: a range cut by e_cap reads the last slot
+        # on both sides and adds P[last] - P[last] = 0
+        last = torch.clamp(start + count - 1, 0, e_cap - 1)
+        prev = torch.clamp(start - 1, 0, e_cap - 1)
+        owns = count > 0
+        pe = torch.where(owns[:, None], p[last], 0.0)
+        ps = torch.where((owns & (start > 0))[:, None], p[prev], 0.0)
+        return None, pe - ps, None, None, None
+
+
+def gather_rows_packed(meta: torch.Tensor, values: torch.Tensor,
+                       idx: torch.Tensor, start: torch.Tensor,
+                       count: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(meta[idx], values[idx])`` at a shared index vector with
+    CSR-range structure: row ``v`` of the tables is referenced by exactly
+    the index slots ``[start[v], start[v] + count[v])``.
+
+    Forward: two plain gathers. The JAX package bitcasts the float rows
+    into the int table and fetches one (M + D)-wide row because a TPU row
+    gather costs the same at any width; on a GPU a gather is bound by the
+    bytes it moves, and the packed table would be one more pass over
+    ``values`` to build it. The bits are those of two gathers either way.
+
+    Backward (``values`` only): ``P = cumsum(g)``,
+    ``d_values[v] = P[start + count - 1] - P[start - 1]`` — no edge-length
+    scatter. Index slots outside every range (the padded tail) must carry
+    zero gradient, as the frontier's masked pads do. Ranges clipped by the
+    length of ``idx`` degrade to partial sums.
+
+    meta: (P, M) int tensor; values: (P, D) float32 (anything else
+    raises, as in the JAX package); idx: (E,) int, non-decreasing, in
+    [0, P); start / count: (P,) int32 or int64."""
+    if values.dtype != torch.float32:
+        raise TypeError("gather_rows_packed requires float32 values "
+                        f"(got {values.dtype})")
+    if values.requires_grad and torch.is_grad_enabled():
+        return _GatherRowsPacked.apply(meta, values, idx, start, count)
+    i = idx.long()
+    return meta[i], values[i]

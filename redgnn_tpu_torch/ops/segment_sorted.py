@@ -51,9 +51,12 @@ class LaunchPlan(NamedTuple):
 def _launch_plan(n_seg: int, dim: int, data_ptr: int) -> LaunchPlan:
     """The kernel's grid and load width for one call. The kernel splits
     each block's edges among its workers itself, so the edge count does
-    not enter the plan."""
-    return LaunchPlan(grid=-(-n_seg // SEGS_PER_BLOCK),
-                      vec=dim % 4 == 0 and data_ptr % 16 == 0)
+    not enter the plan. ``vec`` is the wrapper's choice and is passed to
+    the kernel. How many blocks share a segment run's column passes (wide
+    rows, few segments) is the C entry point's choice alone."""
+    grid = -(-n_seg // SEGS_PER_BLOCK)
+    vec = dim % 4 == 0 and data_ptr % 16 == 0
+    return LaunchPlan(grid=grid, vec=vec)
 
 
 def _kernel():

@@ -131,16 +131,22 @@ def _one_hot_rows(idx: torch.Tensor, n_ent: int) -> torch.Tensor:
 
 
 class StaticTrainer:
-    """Epoch loop for static transductive KGC on one device."""
+    """Epoch loop for static KGC (transductive and inductive) on one
+    device."""
 
     def __init__(self, kg, cfg: TrainConfig, mesh=None):
-        """``kg`` is a StaticKG (anything with train_data, graph/graph_np,
-        n_ent/n_rel, eval_spec(split), resplit(rng), device). The trainer
+        """``kg`` is a StaticKG or an InductiveKG (anything with
+        train_data, graph/graph_np, n_ent/n_rel, eval_spec(split),
+        resplit(rng)). The trainer
         runs on the KG's device. ``mesh`` must be None: sharding over
         several devices is not ported yet."""
         if mesh is not None:
             raise NotImplementedError(
                 "StaticTrainer(mesh=...) is not ported yet (multi-GPU)")
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={cfg.compute_dtype!r} is not ported yet; "
+                "the port computes in float32")
         self.kg = kg
         self.cfg = cfg
         self.mesh = None
@@ -150,8 +156,9 @@ class StaticTrainer:
             n_ent=kg.n_ent, n_rel=kg.n_rel, hidden_dim=cfg.hidden_dim,
             attn_dim=cfg.attn_dim, n_layer=cfg.n_layer, dropout=cfg.dropout,
             act=cfg.act, segment_impl=cfg.segment_impl,
-            dedup_impl=cfg.dedup_impl, dense_hops=cfg.dense_hops,
-            dense_switch=cfg.dense_switch,
+            dedup_impl=cfg.dedup_impl,
+            scan_src_backward=cfg.scan_src_backward,
+            dense_hops=cfg.dense_hops, dense_switch=cfg.dense_switch,
         )
         # parameters from a CPU generator (one seed, the same weights on
         # every device); dropout and the scrub from a device generator
@@ -372,13 +379,12 @@ class StaticTrainer:
         """Filtered MRR / Hits@k over a whole split. Labels and filters
         travel as padded index lists and become one-hot rows on the
         device; each chunk of ``scan_chunk`` batches ends in one
-        device-to-host read."""
+        device-to-host read. The split's graph may have another entity
+        count than the training graph (the inductive task's test side):
+        the parameters are shared, and the model reads the count from
+        the graph."""
         cfg = self.cfg
         spec = self.kg.eval_spec(split)
-        if spec.n_ent != self.model_cfg.n_ent:
-            raise NotImplementedError(
-                "evaluating a graph with another entity count (the "
-                "inductive task) is not ported yet")
         b = self.n_tbatch
         if split not in self.eval_caps:
             rowptr, _, tail = spec.graph_np

@@ -344,3 +344,119 @@ def test_model_on_card_matches_cpu(card):
     torch.testing.assert_close(s_gpu.cpu(), s_cpu, rtol=0, atol=1e-5)
     for k in aux_cpu:
         assert torch.equal(aux_gpu[k].cpu(), aux_cpu[k]), k
+
+
+# ------------------------------------------------- dense-hop shapes, defaults
+
+def _dense_ids(rng, e, n, kind):
+    """Ascending tail ids of a small, dense KG's edge table."""
+    if kind == "every_segment":
+        ids = np.concatenate([np.arange(n), rng.integers(0, n, e - n)])
+    else:  # "empty_segments": every third segment has no edge
+        ids = rng.integers(0, n, e)
+        ids[ids % 3 == 1] += 1
+        ids = np.minimum(ids, n - 1)
+    return np.sort(ids).astype(np.int32)
+
+
+@pytest.mark.parametrize("d", [960, 2400, 20, 50])
+@pytest.mark.parametrize("kind", ["every_segment", "empty_segments"])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_kernel_dense_hop_shapes(card, d, kind, misaligned):
+    """Few segments (135) and wide rows (b*d = 960 or 2400 messages, b = 20
+    or 50 live counts), as a dense hop sums them: forward against the
+    plain version, same bits twice, backward bit for bit."""
+    from redgnn_tpu_torch.ops.segment_sorted import _launch_plan
+
+    rng = np.random.default_rng(4)
+    e, n = 10_567, 135
+    buf = torch.from_numpy(
+        rng.normal(size=e * d + 1).astype(np.float32)).to(card)
+    data = buf[1:].view(e, d) if misaligned else buf[:-1].view(e, d)
+    s = torch.from_numpy(_dense_ids(rng, e, n, kind)).to(card)
+    plan = _launch_plan(n, d, data.data_ptr())
+    assert plan.vec == (d % 4 == 0 and not misaligned)
+    got = segment_sum_sorted(data, s, n)
+    want = segment_sum_sorted_reference(data, s, n)[0]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, segment_sum_sorted(data, s, n))
+    if kind == "empty_segments":
+        assert bool((got[1::3][:-1] == 0).all())
+    g = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(card)
+    g_kernel, g_plain = _backward_pair(data, s, n, g)
+    assert torch.equal(g_kernel, g_plain)
+
+
+def test_kernel_column_blocks_cover_wide_rows(card):
+    """More column passes than blocks to spread them over: a block then
+    walks several passes (the kernel source gives N = 2000 125 segment
+    blocks and room for 4 column blocks; D = 1000 needs 11 passes)."""
+    rng = np.random.default_rng(6)
+    e, d, n = 3000, 1000, 2000
+    x = torch.from_numpy(
+        (rng.integers(-64, 64, size=(e, d)) / 8).astype(np.float32)).to(card)
+    s = torch.from_numpy(np.sort(rng.integers(0, n, e)).astype(np.int32))
+    got = segment_sum_sorted(x, s.to(card), n)
+    # multiples of 1/8: every order of summation gives the same bits
+    assert torch.equal(got, segment_sum_sorted_reference(x, s.to(card), n)[0])
+
+
+DEFAULTS = dict(hidden_dim=16, attn_dim=5, n_layer=3, lr=0.01, lamb=1e-4,
+                n_batch=8, n_tbatch=8, scan_chunk=2, dense_switch=0.4)
+
+
+@pytest.mark.parametrize("segment_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("scan_src_backward", [True, False])
+def test_registry_default_step_on_card_matches_cpu(card, tmp_path,
+                                                   segment_impl,
+                                                   scan_src_backward):
+    """dedup 'auto' and dense hops (sparse hops bitmap under 'xla', sort
+    under 'pallas', then a dense hop): loss, aux and gradients of one step
+    on the card against the CPU. The prefix-sum backward of the packed
+    gather gets a looser bound (its noise is O(total * eps))."""
+    d = _write_kg(tmp_path, np.random.default_rng(0))
+    cfg = TrainConfig(**DEFAULTS, dropout=0.0, segment_impl=segment_impl,
+                      scan_src_backward=scan_src_backward)
+    assert cfg.dedup_impl == "auto" and cfg.dense_hops
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tr = StaticTrainer(StaticKG.load(d, device=dev), cfg)
+        b = cfg.n_batch
+        # hops: 256 and 512 edges sparse, 1024 >= 0.4 * 8 * 232 dense
+        assert tr.train_caps.edge_caps == (256, 512, 1024)
+        batch = torch.as_tensor(tr.kg.train_data[:b], dtype=torch.int32,
+                                device=dev)
+        qmask = torch.ones(b, dtype=torch.bool, device=dev)
+        before = segment_sum_sorted_checked.launches
+        scores, aux = tr.model(tr.kg.graph, batch[:, 0], batch[:, 1], qmask,
+                               tr.train_caps)
+        launched = segment_sum_sorted_checked.launches - before
+        # 2 sparse hops + 2 launches for the dense hop, through the kernel
+        assert launched == (4 if (dev, segment_impl) == ("cuda", "pallas")
+                            else 0)
+        loss = softmax_ce_loss(scores, batch[:, 2], qmask)
+        grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+        out[dev] = (loss.item(), [g.cpu() for g in grads],
+                    {k: v.cpu() for k, v in aux.items()})
+    c, g = out["cpu"], out["cuda"]
+    assert g[0] == pytest.approx(c[0], rel=1e-5)
+    for k in c[2]:
+        assert torch.equal(g[2][k], c[2][k]), k
+    rtol, atol = (1e-3, 1e-4) if scan_src_backward else (1e-4, 1e-5)
+    for a, b_ in zip(g[1], c[1]):
+        torch.testing.assert_close(a, b_, rtol=rtol,
+                                   atol=atol * float(b_.abs().max()))
+
+
+def test_registry_default_eval_on_card_matches_cpu(card, tmp_path):
+    d = _write_kg(tmp_path, np.random.default_rng(0))
+    cfg = TrainConfig(**DEFAULTS, dropout=0.0)
+    metrics = {}
+    for dev in ("cpu", "cuda"):
+        tr = StaticTrainer(StaticKG.load(d, device=dev), cfg)
+        metrics[dev] = tr.evaluate("valid")
+    assert metrics["cuda"]["n"] == metrics["cpu"]["n"] > 0
+    for k in ("mrr", "h1", "h3", "h10"):
+        assert metrics["cuda"][k] == pytest.approx(metrics["cpu"][k],
+                                                   rel=1e-4), k

@@ -30,7 +30,16 @@ from redgnn_tpu_torch.ops.segment_sorted import (
 )
 from redgnn_tpu_torch.utils.port_params import params_from_flax
 
-from test_torch_model import A, D, N_ENT, N_REL, jax_model, port_model
+from test_torch_model import (
+    A,
+    D,
+    DEFAULT_EDGE_CAPS,
+    DEFAULTS,
+    N_ENT,
+    N_REL,
+    jax_model,
+    port_model,
+)
 
 
 def _ids(rng, kind, e, n):
@@ -236,3 +245,76 @@ def test_redgnn_grad(rng, segment_impl):
                                    atol=1e-4, err_msg=name)
         moved += int(np.abs(want[name].numpy()).max() > 1e-6)
     assert moved >= len(want) - 1  # the gradients are not trivially zero
+
+
+def _model_grads(rng, n_layer, segment_impl, **cfg_over):
+    """(JAX gradients as a state dict, the port's model after backward)
+    for the cross-entropy-like loss of tests/test_model_static.py."""
+    csr, jcfg, params, (subs, rels, qmask, caps) = jax_model(
+        rng, n_layer, segment_impl, **cfg_over)
+    b = len(subs)
+    objs = rng.integers(0, N_ENT, b).astype(np.int32)
+    jgraph = JGraph.from_csr(*csr, N_ENT)
+
+    def jloss(p):
+        s, _ = jmodel.RedGNN(jcfg).apply(
+            {"params": p}, jgraph, jnp.asarray(subs), jnp.asarray(rels),
+            jnp.asarray(qmask), JCaps(*caps), False)
+        logp = jax.nn.log_softmax(s, axis=-1)
+        return -jnp.mean(logp[jnp.arange(b), jnp.asarray(objs)])
+
+    want = _grads_as_state_dict(jax.grad(jloss)(params))
+    model = port_model(jcfg, params)
+    s, _ = model(DeviceGraph.from_csr(*csr, N_ENT, device="cpu"),
+                 torch.from_numpy(subs), torch.from_numpy(rels),
+                 torch.from_numpy(qmask), FrontierCaps(*caps))
+    logp = torch.log_softmax(s, dim=-1)
+    (-logp[torch.arange(b), torch.from_numpy(objs).long()].mean()).backward()
+    return want, model
+
+
+def _assert_grads(want, model, rtol, atol):
+    moved = 0
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   rtol=rtol, atol=atol, err_msg=name)
+        moved += int(np.abs(want[name].numpy()).max() > 1e-6)
+    assert moved >= len(want) - 1  # the gradients are not trivially zero
+
+
+@pytest.mark.parametrize("dense_agg", ["sorted_scatter", "cumsum"])
+@pytest.mark.parametrize("segment_impl", ["xla", "pallas"])
+def test_redgnn_registry_defaults_grad_strict(rng, segment_impl, dense_agg):
+    """Sparse hops (bitmap under xla, sort under pallas) then dense hops,
+    plain hidden[src] gather on both sides (scan_src_backward=False):
+    rtol 1e-4 (atol 1e-6 for entries near zero)."""
+    want, model = _model_grads(
+        rng, 4, segment_impl, edge_caps=DEFAULT_EDGE_CAPS,
+        scan_src_backward=False, dense_agg=dense_agg, **DEFAULTS)
+    _assert_grads(want, model, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("cfg_over", [
+    dict(edge_caps=DEFAULT_EDGE_CAPS, **DEFAULTS),
+    dict(dedup_impl="bitmap"),
+], ids=["defaults", "bitmap_only"])
+def test_redgnn_scan_src_backward_grad(rng, cfg_over):
+    """The packed gather's prefix-sum backward on both sides: the looser
+    bound tests/test_model_static.py holds it to (rtol 1e-4, atol 1e-5)."""
+    want, model = _model_grads(rng, 4, "xla", scan_src_backward=True,
+                               **cfg_over)
+    _assert_grads(want, model, rtol=1e-4, atol=1e-5)
+
+
+def test_scan_src_backward_matches_plain_in_port(rng):
+    """Inside the port: gradients with the prefix-sum backward equal those
+    with the plain gather (tests/test_model_static.py:237-275)."""
+    grads = []
+    for flag in (True, False):
+        _, model = _model_grads(np.random.default_rng(5), 3, "xla",
+                                dedup_impl="bitmap", scan_src_backward=flag)
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    for name in grads[0]:
+        np.testing.assert_allclose(grads[0][name].numpy(),
+                                   grads[1][name].numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)

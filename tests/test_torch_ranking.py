@@ -51,3 +51,43 @@ def test_rank_metric_sums_equal(rng):
     for k in want:
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("b,n", [(6, 40), (9, 23)])
+def test_raw_rank_metric_sums_equal(rng, b, n):
+    scores, _, _ = make_case(rng, b, n)
+    targets = rng.integers(0, n, b).astype(np.int32)
+    qmask = np.array([True] * (b - 2) + [False] * 2)
+    want = jax.device_get(jr.raw_rank_metric_sums(
+        jnp.asarray(scores), jnp.asarray(targets), jnp.asarray(qmask)))
+    got = tr.raw_rank_metric_sums(torch.from_numpy(scores),
+                                  torch.from_numpy(targets),
+                                  torch.from_numpy(qmask))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("b,n", [(6, 40), (9, 23)])
+def test_frontier_rank_metric_sums_equal(rng, b, n):
+    """Ties among visited entities, unreached targets (rank 1e9) and
+    padded queries."""
+    prob, _, _ = make_case(rng, b, n)
+    prob = np.abs(prob)
+    visited = rng.random((b, n)) < 0.6
+    targets = rng.integers(0, n, b).astype(np.int32)
+    visited[0, targets[0]] = False   # an unreached target
+    visited[1, targets[1]] = True
+    qmask = np.array([True] * (b - 1) + [False])
+    fil = rng.random((b, n)) < 0.8
+    fil_t = fil & (rng.random((b, n)) < 0.8)
+    args = (prob, visited, targets, qmask, fil, fil_t)
+    want = jax.device_get(jr.frontier_rank_metric_sums(
+        *(jnp.asarray(a) for a in args)))
+    got = tr.frontier_rank_metric_sums(*(torch.from_numpy(a) for a in args))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6,
+                                   err_msg=k)
+    assert float(got["found_sum"]) < float(got["count"])

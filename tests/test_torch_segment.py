@@ -11,11 +11,13 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from redgnn_tpu.ops import segment as jseg
 from redgnn_tpu.ops.segment import segment_sum as jax_segment_sum
 from redgnn_tpu.ops.segment_pallas import (
     segment_sum_pallas,
     segment_sum_pallas_checked,
 )
+from redgnn_tpu_torch.ops import segment as tseg
 from redgnn_tpu_torch.ops.segment import segment_sum
 from redgnn_tpu_torch.ops.segment_sorted import (
     SEGS_PER_BLOCK,
@@ -111,8 +113,10 @@ def test_dispatcher_pallas_and_unported(rng):
         want, rtol=0, atol=0)
     with pytest.raises(ValueError):
         segment_sum(data, seg, 16, indices_are_sorted=False, impl="pallas")
-    with pytest.raises(NotImplementedError):
-        segment_sum(data, seg, 16, indices_are_sorted=True, impl="scan")
+    with pytest.raises(ValueError):
+        segment_sum(data, seg, 16, indices_are_sorted=False, impl="scan")
+    with pytest.raises(ValueError):
+        segment_sum(data, seg, 16, indices_are_sorted=True, impl="mxu")
 
 
 def test_wrapper_rejects_bad_inputs(rng):
@@ -158,3 +162,134 @@ def test_launch_refuses_cpu_tensors():
     seg = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError):
         _launch(data, seg, 2, None, 512)
+
+
+# ------------------------------------------- scan, max, softmax, top-k, l1
+
+def _padded_case(rng, e=300, n=40, d=5, pads=7):
+    """Sorted ids with empty segments and a zeroed out-of-range pad tail
+    (tests/test_segment.py's case)."""
+    ids = np.sort(rng.integers(0, n, e))
+    ids[ids == 11] = 12  # an empty segment in the middle
+    ids[-pads:] = n
+    data = rng.normal(size=(e, d)).astype(np.float32)
+    data[-pads:] = 0.0
+    return data, ids.astype(np.int32)
+
+
+def test_segment_sum_scan_matches(rng):
+    """impl='scan' vs the JAX scan (and the scatter path) at the
+    tolerance tests/test_segment.py uses, values and gradients."""
+    import jax
+
+    n = 40
+    data, ids = _padded_case(rng, n=n)
+    w = rng.normal(size=(n, data.shape[1])).astype(np.float32)
+    want = jax_segment_sum(jnp.asarray(data), jnp.asarray(ids), n,
+                           indices_are_sorted=True, impl="scan")
+    x = torch.from_numpy(data).requires_grad_()
+    got = segment_sum(x, torch.from_numpy(ids), n, indices_are_sorted=True,
+                      impl="scan")
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(
+        got.detach().numpy(),
+        segment_sum(x.detach(), torch.from_numpy(ids), n).numpy(),
+        rtol=1e-4, atol=1e-4)
+    assert np.all(got.detach().numpy()[11] == 0)
+    (got * torch.from_numpy(w)).sum().backward()
+    g_want = jax.grad(lambda v: jnp.sum(jax_segment_sum(
+        v, jnp.asarray(ids), n, indices_are_sorted=True, impl="scan") * w))(
+        jnp.asarray(data))
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_want),
+                               rtol=1e-5, atol=1e-5)
+    assert np.all(x.grad.numpy()[-7:] == 0)
+
+
+@pytest.mark.parametrize("e,n", [(0, 5), (6, 0)])
+def test_segment_sum_scan_empty(e, n):
+    out = segment_sum(torch.ones(e, 3), torch.zeros(e, dtype=torch.int32), n,
+                      indices_are_sorted=True, impl="scan")
+    assert out.shape == (n, 3) and bool((out == 0).all())
+
+
+@pytest.mark.parametrize("d", [None, 4])
+def test_segment_max_equal(rng, d):
+    n = 12
+    shape = (80,) if d is None else (80, d)
+    data = rng.normal(size=shape).astype(np.float32)
+    ids = rng.integers(0, n + 3, 80).astype(np.int32)  # unsorted, some dropped
+    ids[ids == 5] = 6  # an empty segment
+    want = jseg.segment_max(jnp.asarray(data), jnp.asarray(ids), n)
+    got = tseg.segment_max(torch.from_numpy(data), torch.from_numpy(ids), n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert np.all(got.numpy()[5] == np.float32(-1e30))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_segment_softmax_equal(rng, masked):
+    """Values, and a finite gradient equal to JAX's; a masked entry holds
+    a huge logit that must not reach exp()."""
+    import jax
+
+    n, e = 9, 70
+    data = rng.normal(size=e).astype(np.float32) * 3
+    ids = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    valid = None
+    if masked:
+        valid = rng.random(e) < 0.8
+        data[~valid] = 1e4
+    w = rng.normal(size=e).astype(np.float32)
+    jvalid = None if valid is None else jnp.asarray(valid)
+    tvalid = None if valid is None else torch.from_numpy(valid)
+
+    def jfn(x):
+        return jseg.segment_softmax(x, jnp.asarray(ids), n, valid=jvalid)
+
+    want = jfn(jnp.asarray(data))
+    g_want = jax.grad(lambda x: jnp.sum(jfn(x) * w))(jnp.asarray(data))
+    x = torch.from_numpy(data).requires_grad_()
+    got = tseg.segment_softmax(x, torch.from_numpy(ids), n, valid=tvalid)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-7)
+    (got * torch.from_numpy(w)).sum().backward()
+    assert np.isfinite(x.grad.numpy()).all()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_want),
+                               rtol=1e-4, atol=1e-6)
+    if masked:
+        assert np.all(got.detach().numpy()[~valid] == 0)
+        assert np.all(x.grad.numpy()[~valid] == 0)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5])
+@pytest.mark.parametrize("masked", [False, True])
+def test_segment_topk_mask_equal(rng, k, masked):
+    """Equal masks with deliberate ties (broken by position)."""
+    n, e = 7, 90
+    data = rng.integers(0, 4, e).astype(np.float32)  # many ties
+    ids = rng.integers(0, n, e).astype(np.int32)     # unsorted
+    valid = (rng.random(e) < 0.7) if masked else None
+    want = jseg.segment_topk_mask(
+        jnp.asarray(data), jnp.asarray(ids), n, k,
+        valid=None if valid is None else jnp.asarray(valid))
+    got = tseg.segment_topk_mask(
+        torch.from_numpy(data), torch.from_numpy(ids), n, k,
+        valid=None if valid is None else torch.from_numpy(valid))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    live = got.numpy() if valid is None else got.numpy() & valid
+    assert np.bincount(ids[live], minlength=n).max() <= k
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_segment_normalize_l1_equal(rng, masked):
+    n, e = 6, 50
+    data = rng.random(e).astype(np.float32)
+    ids = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    valid = (rng.random(e) < 0.7) if masked else None
+    want = jseg.segment_normalize_l1(
+        jnp.asarray(data), jnp.asarray(ids), n,
+        valid=None if valid is None else jnp.asarray(valid))
+    got = tseg.segment_normalize_l1(
+        torch.from_numpy(data), torch.from_numpy(ids), n,
+        valid=None if valid is None else torch.from_numpy(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)

@@ -16,6 +16,7 @@ import torch
 from flax import serialization
 
 from redgnn_tpu.graph import calibrate as jcal
+from redgnn_tpu.graph.inductive import InductiveKG as JInductiveKG
 from redgnn_tpu.graph.kg import StaticKG as JKG
 from redgnn_tpu.graph.kg import filters_of as jfilters_of
 from redgnn_tpu.models import redgnn as jmodel
@@ -24,6 +25,7 @@ from redgnn_tpu.utils.config import TrainConfig as JConfig
 from redgnn_tpu_torch.cli.train import main as cli_main
 from redgnn_tpu_torch.cli.train import parse_overrides
 from redgnn_tpu_torch.graph import calibrate as tcal
+from redgnn_tpu_torch.graph.inductive import InductiveKG
 from redgnn_tpu_torch.graph.kg import StaticKG, filters_of
 from redgnn_tpu_torch.models import redgnn as tmodel
 from redgnn_tpu_torch.serve import Predictor
@@ -52,13 +54,21 @@ def kg_dir(tmp_path, rng):
     return str(write_kg(d, rng))
 
 
-def make_pair(kg_dir, **over):
+# The registry's implementation defaults (dedup 'auto', the plain segment
+# sum, dense hops, the packed gather) on the toy KG: dense_switch and
+# three layers make the hops bitmap, then dense.
+DEFAULTS = dict(segment_impl="xla", dedup_impl="auto", dense_hops=True,
+                scan_src_backward=True, dense_switch=0.4, n_layer=3)
+
+
+def make_pair(kg_dir, inductive=False, **over):
     """(JAX trainer, port trainer) on the same files and settings, the
     port continuing from the JAX trainer's parameters and Adam state."""
     settings = dict(SETTINGS, **over)
-    jt = jloop.StaticTrainer(JKG.load(kg_dir), JConfig(**settings))
-    pt = tloop.StaticTrainer(StaticKG.load(kg_dir, device="cpu"),
-                             TrainConfig(**settings))
+    jkg = JInductiveKG.load(kg_dir) if inductive else JKG.load(kg_dir)
+    kg = (InductiveKG if inductive else StaticKG).load(kg_dir, device="cpu")
+    jt = jloop.StaticTrainer(jkg, JConfig(**settings))
+    pt = tloop.StaticTrainer(kg, TrainConfig(**settings))
     carry(jt.params, jt.opt_state, pt)
     return jt, pt
 
@@ -392,6 +402,9 @@ def test_trainer_refuses_mesh_and_seeds_init(kg_dir):
     kg = StaticKG.load(kg_dir, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         tloop.StaticTrainer(kg, TrainConfig(**SETTINGS), mesh=object())
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        tloop.StaticTrainer(kg, TrainConfig(**dict(SETTINGS,
+                                                   compute_dtype="bfloat16")))
     a = tloop.StaticTrainer(kg, TrainConfig(**SETTINGS))
     b = tloop.StaticTrainer(kg, TrainConfig(**SETTINGS))
     c = tloop.StaticTrainer(kg, TrainConfig(**dict(SETTINGS, seed=7)))
@@ -528,7 +541,7 @@ def test_cli_transductive_cpu(kg_dir, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--task", "inductive"], ["--task", "interpolation"],
+    ["--eval_splits", "valid"], ["--task", "interpolation"],
     ["--task", "extrapolation"], ["--model", "xerte"], ["--model", "simple"],
     ["--mesh", "2"], ["--hpo", "4"], ["--sqlite", "x.db"],
     ["--results_dir", "results"], ["--attention_stats", "a.npz"],
@@ -551,6 +564,175 @@ def test_cli_overrides_and_device(kg_dir):
     if not torch.cuda.is_available():   # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             cli_main(["--task", "transductive", "--data_path", kg_dir])
+
+
+# ------------------------------------------- registry defaults, inductive
+
+def test_train_steps_at_registry_defaults_match_jax(kg_dir):
+    """3 steps through bitmap hops (packed gather, prefix-sum backward)
+    and dense hops, from carried-over parameters and moments."""
+    jt, pt = make_pair(kg_dir, **DEFAULTS)
+    b = jt.cfg.n_batch
+    kinds = tmodel.hop_plan(pt.model_cfg, pt.kg.graph, pt.train_caps, b)
+    assert "bitmap" in kinds and "dense" in kinds, kinds
+    step = jax.jit(jt._train_step_impl, static_argnames=("caps",))
+
+    def jstep(params, opt_state, lo):
+        s, r, o, q = _step_args(jt.kg, lo, b)
+        return step(params, opt_state, jt.kg.graph, jnp.asarray(s, jnp.int32),
+                    jnp.asarray(r, jnp.int32), jnp.asarray(o, jnp.int32),
+                    jnp.asarray(q), jax.random.PRNGKey(0), jt.train_caps)
+
+    params, opt_state, *_ = jstep(jt.params, jt.opt_state, 0)
+    carry(params, opt_state, pt)
+    for k in range(1, 4):
+        params, opt_state, jl, jov, jne = jstep(params, opt_state, k * b)
+        s, r, o, q = (torch.from_numpy(a) for a in
+                      _step_args(pt.kg, k * b, b))
+        loss, overflow, num_edges = pt._train_step(
+            s.int(), r.int(), o.int(), q, pt.train_caps)
+        np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+        assert bool(overflow) == bool(jov)
+        np.testing.assert_array_equal(num_edges.numpy(), np.asarray(jne))
+        assert_state_close(pt, params, opt_state, atol=2e-5)
+
+
+def test_eval_at_registry_defaults_matches_jax(kg_dir):
+    jt, pt = make_pair(kg_dir, **DEFAULTS)
+    jt.train_epoch(0)
+    carry(jt.params, jt.opt_state, pt)
+    for split in ("valid", "test"):
+        want, got = jt.evaluate(split), pt.evaluate(split)
+        assert got["n"] == want["n"] > 0
+        for k in ("mrr", "h1", "h3", "h10"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+        kinds = tmodel.hop_plan(pt.model_cfg, pt.kg.eval_graph,
+                                pt.eval_caps[split], pt.n_tbatch)
+        assert "bitmap" in kinds and "dense" in kinds, kinds
+
+
+def write_inductive(tmp_path, rng, n_ent=40, n_ent_ind=30, n_rel=4):
+    """A toy inductive dataset: ``DIR/`` and ``DIR_ind/`` with disjoint
+    entity vocabularies (``name\\tid`` pairs, ids in shuffled file order)
+    and shared relations; r2(x) = r0(r1(x)) on both sides."""
+    root = tmp_path / "toy_v1"
+    for d, n, prefix in ((root, n_ent, "e"),
+                         (tmp_path / "toy_v1_ind", n_ent_ind, "u")):
+        d.mkdir()
+        order = rng.permutation(n)
+        (d / "entities.txt").write_text(
+            "".join(f"{prefix}{i}\t{i}\n" for i in order))
+        (d / "relations.txt").write_text(
+            "".join(f"r{i}\t{i}\n" for i in range(n_rel)))
+        p1, p0 = rng.permutation(n), rng.permutation(n)
+        triples = []
+        for i in range(n):
+            triples.append((f"{prefix}{i}", "r1", f"{prefix}{p1[i]}"))
+            triples.append((f"{prefix}{p1[i]}", "r0",
+                            f"{prefix}{p0[p1[i]]}"))
+            triples.append((f"{prefix}{i}", "r2", f"{prefix}{p0[p1[i]]}"))
+            triples.append((f"{prefix}{i}", "r3",
+                            f"{prefix}{rng.integers(n)}"))
+        rng.shuffle(triples)
+        cut = (int(len(triples) * 0.7), int(len(triples) * 0.85))
+        for fname, tri in (("train.txt", triples[:cut[0]]),
+                           ("valid.txt", triples[cut[0]:cut[1]]),
+                           ("test.txt", triples[cut[1]:])):
+            (d / fname).write_text(
+                "".join(f"{h}\t{r}\t{t}\n" for h, r, t in tri))
+    return str(root)
+
+
+@pytest.fixture
+def ind_dir(tmp_path, rng):
+    return write_inductive(tmp_path, rng)
+
+
+def test_inductive_kg_matches_jax(ind_dir):
+    want = JInductiveKG.load(ind_dir)
+    got = InductiveKG.load(ind_dir, device="cpu")
+    assert (got.n_ent, got.n_ent_ind, got.n_rel) == \
+        (want.n_ent, want.n_ent_ind, want.n_rel) == (40, 30, 4)
+    assert got.entity2id_ind == want.entity2id_ind
+    np.testing.assert_array_equal(got.train_data, want.train_data)
+    for name in ("graph_np", "ind_graph_np"):
+        for a, b in zip(getattr(got, name), getattr(want, name)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    for name in ("graph", "ind_graph"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.device.type == "cpu"
+        for f in g.FIELDS:
+            np.testing.assert_array_equal(getattr(g, f).numpy(),
+                                          np.asarray(getattr(w, f)), err_msg=f)
+    assert got.ind_graph.n_ent == 30
+    for split in ("valid", "test"):
+        gs, ws = got.eval_spec(split), want.eval_spec(split)
+        assert gs.n_ent == ws.n_ent == (40 if split == "valid" else 30)
+        np.testing.assert_array_equal(gs.queries, ws.queries)
+        assert len(gs.answers) == len(ws.answers) > 0
+        for a, b in zip(gs.answers, ws.answers):
+            np.testing.assert_array_equal(a, b)
+        assert gs.filters.keys() == ws.filters.keys()
+        for k in ws.filters:
+            np.testing.assert_array_equal(gs.filters[k], ws.filters[k])
+    # the training-query quirk: train queries are the doubled valid set
+    assert len(got.train_data) == 2 * sum(
+        1 for ln in open(os.path.join(ind_dir, "valid.txt")) if ln.strip())
+    graph_before = [a.copy() for a in got.graph_np]
+    got.resplit(np.random.default_rng(3))
+    want.resplit(np.random.default_rng(3))
+    np.testing.assert_array_equal(got.train_data, want.train_data)
+    for a, b in zip(got.graph_np, graph_before):  # queries only
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("settings", [{}, DEFAULTS],
+                         ids=["pallas_sparse", "registry_defaults"])
+def test_inductive_eval_matches_jax(ind_dir, settings):
+    """One epoch on the transductive side, then valid (transductive
+    graph) and test (inductive graph, another entity count) metrics."""
+    jt, pt = make_pair(ind_dir, inductive=True, **settings)
+    want_loss = jt.train_epoch(0)
+    got_loss = pt.train_epoch(0)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    carry(jt.params, jt.opt_state, pt)
+    for split in ("valid", "test"):
+        want, got = jt.evaluate(split), pt.evaluate(split)
+        assert got["n"] == want["n"] > 0
+        for k in ("mrr", "h1", "h3", "h10"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+    assert pt.kg.eval_spec("test").n_ent != pt.model_cfg.n_ent
+    # one set of parameters serves both graphs through the Predictor too
+    pred = Predictor.from_trainer(pt, split="test", top_k=3)
+    q = pt.kg.eval_spec("test").queries[:5]
+    scores, ents = pred.predict(q[:, 0], q[:, 1])
+    assert scores.shape == (5, 3) and ents.max() < 30
+
+
+def test_cli_inductive_cpu(ind_dir, capsys):
+    cli_main(["--task", "inductive", "--data_path", ind_dir, "--device",
+              "cpu", "--epochs", "2", "--set", "hidden_dim=16", "n_layer=3",
+              "n_batch=16", "n_tbatch=16", "dense_switch=0.4"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    resolved = json.loads(lines[0])
+    # the registry's implementation defaults, untouched
+    assert (resolved["dedup_impl"], resolved["segment_impl"],
+            resolved["dense_hops"], resolved["scan_src_backward"]) == \
+        ("auto", "xla", True, True)
+    assert sum("[TEST]" in ln for ln in lines) == 2
+    best = json.loads(lines[-1][len("BEST "):])
+    assert 0.0 <= best["valid_mrr"] <= 1.0 and 0.0 <= best["test_mrr"] <= 1.0
+
+
+def test_cli_registry_defaults_cpu(kg_dir, capsys):
+    """The transductive CLI with no implementation override at all."""
+    cli_main(["--task", "transductive", "--data_path", kg_dir, "--device",
+              "cpu", "--epochs", "1", "--set", "hidden_dim=16", "n_layer=3",
+              "n_batch=16", "n_tbatch=16", "dense_switch=0.4"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[0])["dense_hops"] is True
+    assert lines[-1].startswith("BEST ")
 
 
 def test_metrics_and_timer():

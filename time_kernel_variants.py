@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time builds of the sorted-segment-sum kernel beside the tree's, on one
-NVIDIA GPU, at the hop shapes of chip_smoke.py's slice.
+NVIDIA GPU, at the hop shapes of chip_smoke.py's slice and at its dense
+calls.
 
 Run from the repository root:
 
@@ -15,8 +16,11 @@ compiled at once with the kernel's nvcc flags, one nvcc each. At each hop
 of one served batch (batch 50, L=3, D=48), every variant is checked
 against the plain version and its device time (CUDA graph, inputs in L2,
 as chip_smoke.py times the kernel) is printed beside the tree kernel's,
-timed before and after the variants in the same process. The last line
-is a JSON object of the times.
+timed before and after the variants in the same process. The same is done
+at the dense hops' calls of the umls-sized model (135 segments; rows of
+b*d = 2400 and 960 floats, live counts of b = 50 and 20), e.g.
+``--variant :kColBlocks=1`` for the grid without column blocks. The last
+line is a JSON object of the times.
 Without a CUDA device the script exits non-zero.
 """
 
@@ -35,6 +39,7 @@ import time
 import torch
 
 from chip_smoke import (
+    KERNEL_SLICE,
     KERNEL_TOL,
     N_BATCHES,
     batch_tensors,
@@ -45,8 +50,10 @@ from chip_smoke import (
     log_ptxas,
     phase_build,
     phase_device,
+    record_segment_sums,
     serving_queries,
     write_synthetic_kg,
+    write_umls_sized_kg,
 )
 
 
@@ -139,13 +146,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         variants = build_variants(args.variant, tmp)
         write_synthetic_kg(tmp)
-        kg, _, _, pred = build_slice(tmp, "cuda")
+        kg, _, _, pred = build_slice(tmp, "cuda", **KERNEL_SLICE)
     queries = serving_queries(kg, N_BATCHES * pred.batch)[:pred.batch]
 
-    rows = []
-    for i, (msg, seg, _, n_valid, n) in enumerate(kernel_hops(
-            pred.graph, pred.caps, pred.model.cfg,
-            batch_tensors(pred, queries)[0])):
+    def time_case(label, msg, seg, n):
         want = segment_sum_sorted_reference(msg, seg, n)[0]
         t_tree = [device_ms(lambda: segment_sum_sorted(msg, seg, n))]
         times = {}
@@ -154,14 +158,38 @@ def main() -> int:
                                        **KERNEL_TOL)
             times[spec] = device_ms(lambda: raw_sum(fn, msg, seg, n))
         t_tree.append(device_ms(lambda: segment_sum_sorted(msg, seg, n)))
-        log(f"[variants] hop {i}: E={msg.shape[0]} ({n_valid} valid) "
-            f"D={msg.shape[1]} N={n}: tree kernel "
-            f"{t_tree[0]:.4f} / {t_tree[1]:.4f} ms (before / after); "
+        log(f"[variants] {label}: E={msg.shape[0]} D={msg.shape[1]} N={n}: "
+            f"tree kernel {t_tree[0]:.4f} / {t_tree[1]:.4f} ms (before / "
+            f"after); "
             + "; ".join(f"{spec!r} {t:.4f} ms" for spec, t in times.items())
-            + f" (device, CUDA graph, inputs in L2; {card})")
-        rows.append({"E": msg.shape[0], "valid": n_valid, "N": n,
-                     "tree_ms": t_tree, "variant_ms": times})
-    print(json.dumps({"card": card, "hops": rows}), flush=True)
+            + f" (device, CUDA graph, back to back; {card})")
+        return {"E": msg.shape[0], "D": msg.shape[1], "N": n,
+                "tree_ms": t_tree, "variant_ms": times}
+
+    rows = [dict(time_case(f"hop {i} ({n_valid} valid)", msg, seg, n),
+                 valid=n_valid)
+            for i, (msg, seg, _, n_valid, n) in enumerate(kernel_hops(
+                pred.graph, pred.caps, pred.model.cfg,
+                batch_tensors(pred, queries)[0]))]
+
+    # the first dense hop's two calls of a served batch of the umls-sized
+    # model, and their first 20 queries' columns (the training batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_umls_sized_kg(tmp)
+        kg, cfg, model, pred = build_slice(tmp, "cuda", "umls",
+                                           segment_impl="pallas")
+    q = serving_queries(kg, pred.batch)
+    with torch.inference_mode():
+        calls = record_segment_sums(
+            lambda: model(pred.graph, *batch_tensors(pred, q), pred.caps))
+    dense_rows = []
+    for data, ids, n in [c for c in calls if c[2] == kg.n_ent][:2]:
+        per_query = data.shape[1] // pred.batch
+        for width in (data.shape[1], cfg.n_batch * per_query):
+            dense_rows.append(time_case(
+                "dense call", data[:, :width].contiguous(), ids, n))
+    print(json.dumps({"card": card, "hops": rows, "dense": dense_rows}),
+          flush=True)
     return 0
 
 

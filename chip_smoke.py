@@ -93,6 +93,11 @@ GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5
 # differences of a float32 prefix sum over all edges of a hop, which adds
 # O(total magnitude * eps) noise in another order on each device
 SCAN_GRAD_RTOL, SCAN_GRAD_ATOL_REL = 1e-3, 1e-4
+# phase 7: a temporal step's gradients, card vs CPU. The default path adds
+# ~10^6 messages per hop with float atomics in a new order on every run,
+# and terms that cancel (the time embedding's cos / sin at tens of
+# radians)
+TEMPORAL_GRAD_RTOL, TEMPORAL_GRAD_ATOL_REL = 1e-3, 2e-3
 # phase 6: the umls dataset's sizes
 UMLS_ENT, UMLS_REL = 135, 46
 UMLS_TRAIN, UMLS_VALID, UMLS_TEST = 5_216, 652, 661
@@ -498,7 +503,9 @@ def profile_batches(pred, queries, card):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for k in range(0, len(queries), b):
-            pred.predict(queries[k:k + b, 0], queries[k:k + b, 1])
+            q = queries[k:k + b]
+            pred.predict(q[:, 0], q[:, 1], q[:, 3] if pred.temporal
+                         else None)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     profile_report(prof, wall_us, -(-len(queries) // b), "batch", card)
@@ -905,8 +912,9 @@ def write_umls_sized_kg(path: str, seed: int = SEED) -> None:
 
 
 def timed_batches(pred, queries, n_batches: int):
-    """Per-batch host ms of ``n_batches`` served batches, and the peak
-    memory over them."""
+    """Per-batch host ms of ``n_batches`` served batches of ``queries``
+    ((head, rel) rows, or quadruples for a temporal Predictor), and the
+    peak memory over them."""
     b = pred.batch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -914,7 +922,8 @@ def timed_batches(pred, queries, n_batches: int):
     for k in range(n_batches):
         q = queries[k * b:(k + 1) * b]
         t0 = time.perf_counter()
-        s, e = pred.predict(q[:, 0], q[:, 1])  # raises on overflow
+        s, e = pred.predict(q[:, 0], q[:, 1], q[:, 3] if pred.temporal
+                            else None)  # raises on overflow
         times.append((time.perf_counter() - t0) * 1e3)
         assert s.shape == (b, 10) and np.isfinite(s).all()
         assert ((e >= 0) & (e < pred.graph.n_ent)).all()
@@ -1009,31 +1018,46 @@ def phase_defaults(data_dir: str, card):
     eval_check(trainer, "[6a]", card)
 
 
-def record_segment_sums(run):
-    """The (data, ids, n) of every `segment_sum` call that the layers make
-    while ``run()`` executes, in order."""
+def record_segment_sums(run, module=None):
+    """[data, ids, n, grad] of every `segment_sum` call that ``module``
+    (default: the static layers) makes while ``run()`` executes, in order;
+    ``grad`` is the gradient that reached the call's output when ``run()``
+    differentiates through it, else None."""
     from redgnn_tpu_torch.models import layers
 
-    calls, orig = [], layers.segment_sum
+    module = module or layers
+    calls, orig = [], module.segment_sum
 
     def recording(data, ids, num_segments, **kw):
-        calls.append((data.detach().clone(), ids, num_segments))
-        return orig(data, ids, num_segments, **kw)
+        out = orig(data, ids, num_segments, **kw)
+        call = [data.detach().clone(), ids, num_segments, None]
+        calls.append(call)
+        if out.requires_grad:
+            out.register_hook(
+                lambda g, call=call: call.__setitem__(3, g.detach().clone()))
+        return out
 
-    layers.segment_sum = recording
+    module.segment_sum = recording
     try:
         run()
     finally:
-        layers.segment_sum = orig
+        module.segment_sum = orig
     return calls
 
 
-def dense_kernel_check(calls, n_ent: int, tag: str, card):
-    """The kernel at a path's dense calls (the ones that sum by the
-    tail-sorted table into ``n_ent`` rows), at their real inputs: forward
+def dense_kernel_check(calls, n_ent, tag: str, card, sum_bound=False):
+    """The kernel at a path's recorded calls, at their real inputs: forward
     against the plain version (KERNEL_TOL), backward against autograd of
-    the plain version (bit for bit), and device times. Returns one row
-    per call."""
+    the plain version (bit for bit) at the call's recorded output gradient
+    (a seeded random one where none was recorded), and device times.
+    ``n_ent`` (when not None) says the calls are dense ones, summing by
+    the tail-sorted table into ``n_ent`` rows. ``sum_bound`` widens the
+    forward's tolerance by the rounding bound of the sums themselves:
+    float32 sums of m terms in two orders differ by at most
+    2 (m - 1) u sum|x| (u = 2^-24, recursive summation), which is what
+    separates the two where the terms are large and the sum is not (the
+    temporal model's random weights make messages of 1e3-1e6). Returns one
+    row per call."""
     from redgnn_tpu_torch.ops.segment_sorted import (
         _launch_plan,
         segment_sum_sorted,
@@ -1042,10 +1066,11 @@ def dense_kernel_check(calls, n_ent: int, tag: str, card):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = []
-    for data, ids, n in calls:
+    for data, ids, n, g in calls:
         e, d = data.shape
-        assert n == n_ent and bool((ids[1:] >= ids[:-1]).all())
-        g = torch.randn(n, d, generator=gen, device="cuda")
+        assert n_ent in (None, n) and bool((ids[1:] >= ids[:-1]).all())
+        if g is None:
+            g = torch.randn(n, d, generator=gen, device="cuda")
         outs, grads = [], []
         for fn in (segment_sum_sorted,
                    lambda x, s, k: segment_sum_sorted_reference(x, s, k)[0]):
@@ -1056,23 +1081,45 @@ def dense_kernel_check(calls, n_ent: int, tag: str, card):
             grads.append(x.grad)
         again = segment_sum_sorted(data, ids, n)
         torch.cuda.synchronize()
-        torch.testing.assert_close(outs[0], outs[1], **KERNEL_TOL)
+        err = float((outs[0] - outs[1]).abs().max())
+        shown = (f"max |diff| {err:.3g} (rtol {KERNEL_TOL['rtol']}, atol "
+                 f"{KERNEL_TOL['atol']}")
+        if sum_bound:
+            s_abs = segment_sum_sorted_reference(data.abs(), ids, n)[0]
+            m = torch.bincount(ids[ids < n].long(), minlength=n)
+            slack = 2.0 * torch.clamp(m - 1, min=0)[:, None] * 2.0 ** -24 \
+                * s_abs
+            diff = (outs[0] - outs[1]).abs()
+            limit = (KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * outs[1].abs()
+                     + slack)
+            assert bool((diff <= limit).all()), (err, float(
+                (diff - limit).max()))
+            ratio = float((diff / torch.clamp(s_abs, min=1e-30)).max())
+            shown += (f", + 2 (m-1) u sum|x|; at most {ratio:.3g} of "
+                      f"sum|x|")
+        else:
+            torch.testing.assert_close(outs[0], outs[1], **KERNEL_TOL)
+        shown += ")"
         assert torch.equal(outs[0], again), "two calls gave different bits"
         assert torch.equal(grads[0], grads[1]), "backward differs"
-        err = float((outs[0] - outs[1]).abs().max())
+        n_valid = int((ids < n).sum())  # padding ids lie past the end
         idx = ids.long()
+        if n_valid < e:  # index_add_ raises on them: they go to a spare row
+            idx = torch.clamp(idx, max=n)
         t_k = device_ms(lambda: segment_sum_sorted(data, ids, n))
         t_f = flushed_ms(lambda: segment_sum_sorted(data, ids, n))
         t_p = device_ms(lambda: segment_sum_sorted_reference(data, ids, n))
-        t_l = device_ms(lambda: torch.zeros(n, d, device="cuda").index_add_(
+        t_l = device_ms(lambda: torch.zeros(n + (n_valid < e), d,
+                                            device="cuda").index_add_(
             0, idx, data))
-        # every row read once (dead rows are zeros, but rows all the
-        # same), ids read once, output written once
-        b_ms = (e * d * 4 + e * 4 + n * d * 4) / HBM_BYTES_PER_S * 1e3
+        # every row of an id in range read once (the rows of dead dense
+        # edges are zeros, but rows all the same), ids read once, output
+        # written once
+        b_ms = (n_valid * d * 4 + e * 4 + n * d * 4) / HBM_BYTES_PER_S * 1e3
         plan = _launch_plan(n, d, data.data_ptr())
-        log(f"{tag} dense call E={e} D={d} N={n} ({e * d * 4 / 1e6:.1f} MB "
-            f"of rows; vec={plan.vec}): kernel == plain, max |diff| {err:.3g} (rtol "
-            f"{KERNEL_TOL['rtol']}, atol {KERNEL_TOL['atol']}), same bits "
+        kind = "dense call" if n_ent is not None else "call"
+        log(f"{tag} {kind} E={e} D={d} N={n} ({e * d * 4 / 1e6:.1f} MB "
+            f"of rows; vec={plan.vec}): kernel == plain, {shown}, same bits "
             f"twice, backward == plain autograd bit for bit; kernel "
             f"{t_k:.4f} ms back to back, {t_f:.4f} ms with L2 flushed; "
             f"byte bound {b_ms * 1e3:.2f} us = {b_ms / t_k:.1%} of the "
@@ -1197,6 +1244,514 @@ def phase_family_defaults(data_dir: str, card):
                      SCAN_GRAD_RTOL, SCAN_GRAD_ATOL_REL)
 
 
+# --------------------------------------------- phase 7: temporal RED-GNN
+
+ICEWS_ENT, ICEWS_REL, ICEWS_DAYS = 7_128, 230, 365
+ICEWS_INTERP = (72_826, 8_941, 8_963)      # ICEWS14_TeMP train/valid/test
+ICEWS_FORECAST = (63_685, 13_823, 13_222)  # ICEWS14_forecasting
+T_TRAIN_STEPS = 16
+T_EVAL_BATCHES = {"ICEWS14_TeMP": 32, "ICEWS14_forecasting": 16}
+T_AUX = ("edge_overflow", "node_overflow", "num_nodes", "num_edges")
+
+
+def write_icews14_sized(path: str, forecasting: bool,
+                        seed: int = SEED) -> None:
+    """An id-based temporal dir of ICEWS14's sizes: 7,128 entities, 230
+    relations, 365 days, distinct (h, r, t, day) quadruples with Zipf(1)
+    heads, tails and relations over permuted ids (so that, as on the real
+    data, a whole-timeline frontier has seen about a quarter of the edges
+    after two hops and saturates after three). Interpolation
+    (ICEWS14_TeMP): 72,826 / 8,941 / 8,963 quadruples split at random,
+    day stamps. Forecasting (ICEWS14_forecasting): 63,685 / 13,823 /
+    13,222 in time order, hour stamps in steps of 24."""
+    rng = np.random.default_rng(seed)
+    splits = ICEWS_FORECAST if forecasting else ICEWS_INTERP
+    w_ent = 1.0 / np.arange(1, ICEWS_ENT + 1)
+    w_rel = 1.0 / np.arange(1, ICEWS_REL + 1)
+    h_ids, t_ids = rng.permutation(ICEWS_ENT), rng.permutation(ICEWS_ENT)
+    need = sum(splits)
+    rows = np.empty((0, 4), np.int64)
+    while len(rows) < need:
+        n = 2 * (need - len(rows))
+        h = h_ids[rng.choice(ICEWS_ENT, n, p=w_ent / w_ent.sum())]
+        t = t_ids[rng.choice(ICEWS_ENT, n, p=w_ent / w_ent.sum())]
+        r = rng.choice(ICEWS_REL, n, p=w_rel / w_rel.sum())
+        day = rng.integers(0, ICEWS_DAYS, n)
+        new = np.stack([h, r, t, day], 1)[h != t]
+        rows = np.unique(np.concatenate([rows, new]), axis=0)
+    rows = rows[rng.permutation(len(rows))[:need]]
+    if forecasting:
+        rows = rows[np.argsort(rows[:, 3], kind="stable")]
+        rows[:, 3] *= 24
+    with open(os.path.join(path, "entity2id.txt"), "w") as f:
+        f.write("".join(f"e{i}\t{i}\n" for i in range(ICEWS_ENT)))
+    with open(os.path.join(path, "relation2id.txt"), "w") as f:
+        f.write("".join(f"r{i}\t{i}\n" for i in range(ICEWS_REL)))
+    bounds = np.cumsum((0,) + splits)
+    for name, lo, hi in zip(("train", "valid", "test"), bounds, bounds[1:]):
+        with open(os.path.join(path, f"{name}.txt"), "w") as f:
+            f.write("".join(f"{a}\t{b}\t{c}\t{d}\t0\n"
+                            for a, b, c, d in rows[lo:hi]))
+
+
+# comparisons of phase 7 that failed: each is printed where it happens and
+# the script exits non-zero at the end, after the phases that do not
+# depend on it have run
+FAILED: list = []
+
+
+def soft_check(tag: str, fn, *args):
+    """``fn(*args)``; an AssertionError is printed and recorded in FAILED
+    instead of ending the run."""
+    try:
+        return fn(*args)
+    except AssertionError as err:
+        FAILED.append(f"{tag} {fn.__name__}: {err!r}")
+        log(f"{tag} FAILED {fn.__name__}: {err!r}")
+        return None
+
+
+def quad_tensors(quads: np.ndarray, device):
+    """(subs, rels, objs, times, qmask) of a batch of quadruples."""
+    cols = [torch.as_tensor(quads[:, j].astype(np.int32), device=device)
+            for j in range(4)]
+    return cols + [torch.ones(len(quads), dtype=torch.bool, device=device)]
+
+
+def temporal_forward(model, kg, batch, caps, exclude=None):
+    graph, etime, ekey, selfloop_slot, time_rowptr, dense = kg.model_args()
+    subs, rels, _, times, qmask = batch
+    return model(graph, etime, subs, rels, times, qmask, caps, exclude,
+                 False, ekey, selfloop_slot, time_rowptr, dense)
+
+
+def cpu_twin(model):
+    from redgnn_tpu_torch.models.temporal import TRedGNN
+
+    cpu = TRedGNN(model.cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return cpu
+
+
+def reference_scores(model, kg_cpu, quads, caps, exclude=None):
+    """The scores of ``model``'s weights on ``quads``, computed on the CPU
+    in float64 (weights and every state; the default dtype is float64
+    during the call), with plain sums (segment_impl 'xla') and the plain
+    src gather (scan_src_backward off), which change no value of the
+    forward: the reference that the card's and the CPU's float32 scores
+    are held to."""
+    import dataclasses
+
+    from redgnn_tpu_torch.models.temporal import TRedGNN
+
+    cfg = dataclasses.replace(model.cfg, segment_impl="xla",
+                              scan_src_backward=False)
+    ref = TRedGNN(cfg, device="cpu").double()
+    ref.load_state_dict({k: v.to("cpu", torch.float64)
+                         for k, v in model.state_dict().items()})
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        with torch.inference_mode():
+            scores, _ = temporal_forward(ref, kg_cpu,
+                                         quad_tensors(quads, "cpu"), caps,
+                                         exclude)
+    finally:
+        torch.set_default_dtype(default)
+    assert scores.dtype == torch.float64, scores.dtype
+    return scores
+
+
+def temporal_scores_agree(s_gpu, s_cpu, s_ref):
+    """The card's float32 scores against the float64 reference ``s_ref``,
+    relative to the largest |score| of the query's row (at least 1):
+    within 1e-4, or within twice the CPU's own float32 error on that row
+    where that is larger. With random weights a row's largest score can be
+    a sum whose terms cancel to ~1/1000 of their size; float32 then puts
+    ~1e-4 of the row's scale on it, more or less as the batch's sums are
+    conditioned, in an order that differs between the devices, so card
+    and CPU differ by up to the sum of their errors. Returns (max |card -
+    CPU|, the card's and the CPU's max |diff| / row scale against the
+    reference, the (B, 1) per-row bound)."""
+    scale = torch.clamp(s_ref.abs().amax(1, keepdim=True), min=1.0)
+    err_cpu = ((s_cpu.double() - s_ref).abs() / scale).amax(1, keepdim=True)
+    err_gpu = ((s_gpu.double() - s_ref).abs() / scale).amax(1, keepdim=True)
+    tol = torch.clamp(2.0 * err_cpu, min=1e-4)
+    assert bool((err_gpu <= tol).all()), (
+        float(err_gpu.max()), float(err_cpu.max()),
+        float((err_gpu - tol).max()))
+    return (float((s_gpu - s_cpu).abs().max()), float(err_gpu.max()),
+            float(err_cpu.max()), tol * scale)
+
+
+def temporal_batch_card_vs_cpu(model, kg, kg_cpu, caps, quads, tag: str):
+    """One batch on the card vs the same weights on the CPU (plain path):
+    scores as `temporal_scores_agree` holds them, aux counts (and frontier
+    keys) equal, the frontier softmax within what the score differences allow
+    (|dp| <= 2 p max|ds| + 1e-6 per query), the card's top-10 equal to the
+    float64 reference's where untied (ties within the score bound)."""
+    cpu = cpu_twin(model)
+    with torch.inference_mode():
+        s_gpu, aux = temporal_forward(model, kg, quad_tensors(quads, "cuda"),
+                                      caps)
+        s_cpu, aux_cpu = temporal_forward(cpu, kg_cpu,
+                                          quad_tensors(quads, "cpu"), caps)
+    s_ref = reference_scores(model, kg_cpu, quads, caps)
+    for k in T_AUX + (("frontier_keys",) if "frontier_keys" in aux else ()):
+        assert torch.equal(aux[k].cpu(), aux_cpu[k]), k
+    s_gpu = s_gpu.cpu()
+    assert bool(torch.isfinite(s_gpu).all()) and float(s_cpu.abs().max()) > 0
+    diff, rel, rel_cpu, bound = temporal_scores_agree(s_gpu, s_cpu, s_ref)
+    extra = ""
+    if "frontier_softmax" in aux:
+        keys = aux_cpu["frontier_keys"].long()
+        live = keys != 2 ** 31 - 1
+        ds = (s_gpu - s_cpu).abs().amax(1)        # per query
+        q = torch.where(live, keys // kg.n_ent, 0)
+        p = aux_cpu["frontier_softmax"]
+        dp = (aux["frontier_softmax"].cpu() - p).abs()
+        assert bool((dp <= 2.0 * p * ds[q] + 1e-6).all()), float(dp.max())
+        extra = f"; frontier softmax max |diff| {float(dp.max()):.3g}"
+    tg, tr = torch.topk(s_gpu, 11), torch.topk(s_ref, 11)
+    n_cmp = topk_untied_agree(tg.values.numpy(), tg.indices.numpy(),
+                              tr.values.numpy(), tr.indices.numpy(),
+                              bound.numpy())
+    log(f"{tag} card vs CPU, one batch of {len(quads)}: max |score diff| "
+        f"{diff:.3g}; against the float64 reference card {rel:.3g} and CPU "
+        f"{rel_cpu:.3g} of the row's largest |score| (bound: 1e-4 or twice "
+        f"the CPU's; largest |score| {float(s_ref.abs().max()):.4g})"
+        f"{extra}; aux equal, "
+        f"num_nodes {aux_cpu['num_nodes'].tolist()} num_edges "
+        f"{aux_cpu['num_edges'].tolist()}; card top-10 equal to the "
+        f"reference's at {n_cmp} untied ranks")
+
+
+def train_sample(kg, b: int, seed: int = SEED):
+    """``b`` seeded training quadruples and their graph rows."""
+    rows = np.random.default_rng(seed).permutation(len(kg.splits["train"]))
+    return kg.splits["train"][rows[:b]], rows[:b]
+
+
+def temporal_step_card_vs_cpu(model, kg, kg_cpu, cfg, tag: str, rtol: float,
+                              atol_rel: float, check_grads: bool = True):
+    """One training step's loss, aux counts and every parameter's
+    gradient, card vs CPU: the same weights and batch (with leave-one-out
+    in interpolation), no dropout. The scores are held to the float64
+    reference as in `temporal_scores_agree`, and the loss to 1e-5 relative plus twice the
+    largest score difference (the NLL moves by at most that much). The
+    gradients are held to ``rtol`` + ``atol_rel`` * max|grad| when
+    ``check_grads``, else only their largest difference is printed."""
+    from redgnn_tpu_torch.train.temporal_loop import (
+        exact_caps,
+        nll_softmax_loss,
+    )
+
+    quads, rows = train_sample(kg, cfg.batch_size)
+    caps = exact_caps(kg, cfg, quads, cfg.batch_size)
+    excl = (kg.exclusion_slots(rows).astype(np.int32)
+            if cfg.mode == "interpolation" else None)
+    out = {}
+    for name, m, g in (("cpu", cpu_twin(model), kg_cpu),
+                       ("cuda", model, kg)):
+        dev = "cpu" if name == "cpu" else "cuda"
+        batch = quad_tensors(quads, dev)
+        scores, aux = temporal_forward(
+            m, g, batch, caps,
+            None if excl is None else torch.as_tensor(excl, device=dev))
+        loss = nll_softmax_loss(scores, batch[2], batch[4])
+        params = list(m.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        out[name] = (float(loss.detach()),
+                     {k: aux[k].cpu() for k in T_AUX},
+                     [torch.zeros(p.shape) if x is None else x.cpu()
+                      for x, p in zip(grads, params)],
+                     scores.detach().cpu())
+    (l_c, aux_c, g_c, s_c), (l_g, aux_g, g_g, s_g) = out["cpu"], out["cuda"]
+    s_ref = reference_scores(model, kg_cpu, quads, caps,
+                             None if excl is None else torch.as_tensor(excl))
+    ds, rel, rel_cpu, _ = temporal_scores_agree(s_g, s_c, s_ref)
+    assert abs(l_g - l_c) <= 1e-5 * abs(l_c) + 2 * ds, (l_g, l_c, ds)
+    for k in aux_c:
+        assert torch.equal(aux_g[k], aux_c[k]), k
+    worst, nonzero = 0.0, 0
+    for (name, _), a, b in zip(model.named_parameters(), g_g, g_c):
+        scale = float(b.abs().max())
+        err = float(((a - b).abs() - rtol * b.abs()).max())
+        assert err <= atol_rel * scale or not check_grads, (name, err, scale)
+        if scale > 0:
+            nonzero += 1
+            worst = max(worst, float((a - b).abs().max()) / scale)
+    assert nonzero >= len(g_c) - 2, nonzero  # now/future: extrapolation
+    log(f"{tag} one step, card vs CPU (dropout 0): loss {l_g:.6f} vs "
+        f"{l_c:.6f} (rtol 1e-5 + 2 x max|score diff| {ds:.3g}; against "
+        f"the float64 reference, scores of the card within {rel:.3g} and of "
+        f"the CPU within {rel_cpu:.3g} of their row's largest, bound 1e-4 "
+        f"or twice the CPU's); aux counts equal, "
+        f"num_edges "
+        f"{aux_c['num_edges'].tolist()}; {len(g_c)} parameter gradients "
+        + (f"within rtol {rtol} + {atol_rel} * max|grad|" if check_grads
+           else "not held") + f", worst max|diff| / max|grad| {worst:.3g}")
+
+
+def temporal_train_check(trainer, tag: str, card):
+    """Two epochs of ``max_train_batches`` steps through train_epoch (the
+    second one timed): every update applied, finite loss, parameters
+    moved, one host read per chunk. Returns ms per step."""
+    cfg = trainer.cfg
+    steps = cfg.max_train_batches
+    flat0 = trainer._flat.clone()
+    loss = trainer.train_epoch(0)
+    assert int(trainer.opt_state["count"]) == steps
+    assert np.isfinite(loss) and loss > 0, loss
+    assert not torch.equal(trainer._flat, flat0)
+    trainer.timer.enabled = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    syncs0 = trainer.host_syncs
+    loss2 = trainer.train_epoch(1)
+    seconds = trainer.timer.buckets["train"]["device"]
+    stage = trainer.timer.buckets["train"]["stage"]
+    peak = torch.cuda.max_memory_allocated()
+    trainer.timer.enabled = False
+    assert int(trainer.opt_state["count"]) == 2 * steps
+    assert np.isfinite(loss2)
+    assert bool(torch.isfinite(trainer._flat).all())
+    assert trainer.host_syncs - syncs0 == -(-steps // cfg.scan_chunk)
+    log(f"{tag} {steps} steps through train_epoch (dropout {cfg.dropout}, "
+        f"lr {cfg.lr}, {cfg.optimizer}): {steps} updates applied, loss sum "
+        f"{loss:.2f}; a second epoch {seconds / steps * 1e3:.3f} ms per "
+        f"step (chunk loop; staging and the exact-cap walk {stage:.3f} s), "
+        f"loss sum {loss2:.2f}, {trainer.host_syncs - syncs0} host reads, "
+        f"max_memory_allocated {peak} B ({card})")
+    return seconds / steps * 1e3, peak
+
+
+def temporal_profile_steps(trainer, card):
+    """torch.profiler over 2 train steps of the trainer (defaults)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from redgnn_tpu_torch.train.temporal_loop import exact_caps
+
+    cfg, kg = trainer.cfg, trainer.kg
+    b = cfg.batch_size
+    quads, rows = train_sample(kg, 2 * b, seed=SEED + 1)
+    excl = (kg.exclusion_slots(rows) if cfg.mode == "interpolation"
+            else np.zeros(2 * b, np.int64))
+    batches = torch.stack(trainer._stage(quads, b, excl), 1)
+    caps = trainer.caps["train"].union(exact_caps(kg, cfg, quads, b))
+    snap = trainer._snapshot()
+    trainer._run_chunk(batches, caps)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._run_chunk(batches, caps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    trainer._rollback(snap)
+    profile_report(prof, wall_us, 2, "step", card)
+
+
+def temporal_eval_check(trainer, tag: str, card):
+    trainer.evaluate("valid")  # warm-up (the split's caps are exact)
+    t0 = time.perf_counter()
+    m = trainer.evaluate("valid")
+    seconds = time.perf_counter() - t0
+    cfg = trainer.cfg
+    n_q = min(len(trainer.kg.splits["valid"]),
+              cfg.max_eval_batches * cfg.eval_batch_size)
+    assert m["n"] == n_q, (m["n"], n_q)
+    names = (("raw_", "fil_", "fil_t_") if cfg.mode == "extrapolation"
+             else ("",))
+    for pre in names:
+        vals = [m[f"{pre}{k}"] for k in ("mrr", "h1", "h3", "h10")]
+        assert all(0.0 <= v <= 1.0 for v in vals), m
+        assert vals[1] <= vals[2] <= vals[3], m
+    assert np.isfinite(m["loss"])
+    shown = " ".join(f"{pre}MRR {m[pre + 'mrr']:.4f}" for pre in names)
+    if cfg.mode == "extrapolation":
+        assert m["fil_mrr"] >= m["raw_mrr"] - 1e-9
+        shown += f" found {m['found_rate']:.3f}"
+    log(f"{tag} evaluate('valid'), first {cfg.max_eval_batches} batches of "
+        f"{cfg.eval_batch_size}: {int(m['n'])} queries, {shown}, loss "
+        f"{m['loss']:.4f} (random weights after {2 * cfg.max_train_batches} "
+        f"steps); {seconds:.3f} s, {n_q / seconds:.1f} queries/s ({card})")
+
+
+def temporal_kernel_path(trainer, pred0, queries, kg_cpu, tag: str, card):
+    """The kernel path: a Predictor over TRedGNN(dedup_impl='sort',
+    segment_impl='pallas') with the trainer's weights and the serving caps
+    of ``pred0``. The kernel at every call of one served batch and of one
+    training forward + loss.backward() (its real output gradients),
+    against its plain version; launches per batch and per step; one batch
+    against the CPU; two forward + backward runs bit-equal; 8 served
+    batches counted. Returns the kernel's rows and counts."""
+    import dataclasses
+
+    from redgnn_tpu_torch.models import temporal as tmod
+    from redgnn_tpu_torch.ops.segment_sorted import segment_sum_sorted_checked
+    from redgnn_tpu_torch.serve import Predictor
+    from redgnn_tpu_torch.train.temporal_loop import (
+        exact_caps,
+        nll_softmax_loss,
+    )
+
+    kg, cfg = trainer.kg, trainer.cfg
+    mcfg = dataclasses.replace(trainer.model_cfg, dedup_impl="sort",
+                               segment_impl="pallas")
+    model = tmod.TRedGNN(mcfg, device="cuda")
+    pred = Predictor(model, trainer.model.state_dict(), kg, cfg, top_k=10,
+                     caps=pred0.caps)
+    kinds = tmod.temporal_hop_plan(mcfg, kg.graph.n_edges, pred.caps,
+                                   pred.batch, True)
+    assert kinds[0] == "sort" and set(kinds) <= {"sort", "dense"}, kinds
+    per_batch = len(kinds) + kinds.count("dense")  # dense: 2 calls a hop
+    q0 = queries[:pred.batch]
+    # no_grad, not inference_mode: the recorded ids go through autograd in
+    # the backward check below
+    with torch.no_grad():
+        calls = record_segment_sums(
+            lambda: temporal_forward(model, kg, quad_tensors(q0, "cuda"),
+                                     pred.caps), tmod)
+    assert len(calls) == per_batch, (len(calls), per_batch)
+    serve_rows = dense_kernel_check(calls, None, f"{tag} serving", card,
+                                    sum_bound=True)
+    del calls
+
+    quads, rows = train_sample(kg, cfg.batch_size)
+    caps = exact_caps(kg, cfg, quads, cfg.batch_size)
+    tkinds = tmod.temporal_hop_plan(mcfg, kg.graph.n_edges, caps,
+                                    cfg.batch_size, True)
+    per_step = len(tkinds) + tkinds.count("dense")
+    excl = (torch.as_tensor(kg.exclusion_slots(rows).astype(np.int32),
+                            device="cuda")
+            if cfg.mode == "interpolation" else None)
+
+    def step():
+        model.zero_grad()
+        batch = quad_tensors(quads, "cuda")
+        scores, _ = temporal_forward(model, kg, batch, caps, excl)
+        nll_softmax_loss(scores, batch[2], batch[4]).backward()
+        return scores.detach(), [p.grad.clone() for p in model.parameters()
+                                 if p.grad is not None]
+
+    segment_sum_sorted_checked.launches = 0
+    calls = record_segment_sums(step, tmod)
+    step_launches = segment_sum_sorted_checked.launches
+    assert len(calls) == step_launches == per_step, (len(calls),
+                                                     step_launches)
+    # every message sum saw its output gradient (the live counts have none)
+    assert sum(c[3] is not None for c in calls) == len(tkinds), calls
+    train_rows = dense_kernel_check(calls, None, f"{tag} training", card,
+                                    sum_bound=True)
+    del calls
+    (s1, g1), (s2, g2) = step(), step()
+    assert torch.equal(s1, s2) and len(g1) == len(g2) and all(
+        torch.equal(a, b) for a, b in zip(g1, g2)), "two runs differ"
+    log(f"{tag} two forward + backward runs through the kernel: scores and "
+        f"{len(g1)} parameter gradients bit-equal; hops serving {kinds}, "
+        f"training {tkinds}")
+
+    # the main path of this phase: 8 served batches, counted
+    timed_batches(pred, queries, 1)  # warm-up, not counted
+    segment_sum_sorted_checked.launches = 0
+    times, peak = timed_batches(pred, queries, N_BATCHES)
+    launches = segment_sum_sorted_checked.launches
+    assert launches == per_batch * N_BATCHES, (launches, per_batch)
+    log(f"{tag} served {N_BATCHES} batches of {pred.batch} through the "
+        f"kernel: per-batch ms {[round(t, 3) for t in times]}; mean "
+        f"{np.mean(times):.3f} ms; {launches} kernel launches (= "
+        f"{per_batch} x {N_BATCHES}); {per_step} per train step; "
+        f"max_memory_allocated {peak} B ({card})")
+    profile_batches(pred, queries[:2 * pred.batch], card)
+    soft_check(tag, temporal_batch_card_vs_cpu, model, kg, kg_cpu,
+               pred.caps, q0, tag)
+    return {"serve": serve_rows, "train": train_rows, "launches": launches,
+            "launches_per_batch": per_batch, "launches_per_step": per_step,
+            "train_launches": step_launches}
+
+
+def phase_temporal(data_dir: str, name: str, tag: str, card):
+    """Phase 7a / 7c: the registry entry ``name`` on an ICEWS14-sized dir
+    (loaded as the CLI loads it) at its defaults, then (7b, and within 7c)
+    the kernel path."""
+    import dataclasses
+
+    from redgnn_tpu_torch.cli.train import load_temporal_kg
+    from redgnn_tpu_torch.models.temporal import TRedGNN, temporal_hop_plan
+    from redgnn_tpu_torch.serve import Predictor
+    from redgnn_tpu_torch.train.temporal_loop import TemporalTrainer
+    from redgnn_tpu_torch.utils.config import dataset_config
+
+    cfg = dataset_config("temporal", name, max_train_batches=T_TRAIN_STEPS,
+                         max_eval_batches=T_EVAL_BATCHES[name])
+    t0 = time.perf_counter()
+    kg = load_temporal_kg(data_dir, cfg, "cuda")
+    kg_cpu = load_temporal_kg(data_dir, cfg, "cpu")
+    trainer = TemporalTrainer(kg, cfg)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = Predictor.from_trainer(trainer, split="test", top_k=10)
+    walk_s = time.perf_counter() - t0
+    kinds = temporal_hop_plan(trainer.model_cfg, kg.graph.n_edges, pred.caps,
+                              pred.batch, True)
+    n_test = len(kg.splits["test"])
+    log(f"{tag} {name}: {kg.n_ent} entities, {kg.n_rel} relation rows, "
+        f"{kg.n_time} times, {len(kg.splits['train'])} / "
+        f"{len(kg.splits['valid'])} / {n_test} train / valid / test "
+        f"queries (with inverses), {kg.graph.n_edges} edges; hidden "
+        f"{cfg.hidden_dim}, attn {cfg.attn_dim}, L={cfg.n_layer}, "
+        f"{cfg.act}, batch {cfg.batch_size} / {cfg.eval_batch_size}, "
+        f"window {cfg.window}, dedup {trainer.model_cfg.dedup_impl}, "
+        f"segment_impl {cfg.segment_impl}; loaded in {load_s:.2f} s; exact "
+        f"caps of the whole test split ({n_test} queries) walked in "
+        f"{walk_s:.2f} s: node {pred.caps.node_caps} edge "
+        f"{pred.caps.edge_caps}; hop plan at batch {pred.batch}: {kinds}")
+    if cfg.mode == "interpolation":
+        assert "dense" in kinds and kinds[0] == "bitmap", kinds
+    else:
+        assert kinds == ["bitmap"] * cfg.n_layer, kinds
+    # the caps are exact for the split's batches in its own order (the JAX
+    # Predictor's profile), so the split is served in that order
+    queries = kg.splits["test"][:N_BATCHES * pred.batch]
+    timed_batches(pred, queries, 1)  # warm-up
+    times, peak = timed_batches(pred, queries, N_BATCHES)
+    log(f"{tag} served {N_BATCHES} batches of {pred.batch} at registry "
+        f"defaults (Predictor.from_trainer): per-batch ms "
+        f"{[round(t, 3) for t in times]}; mean {np.mean(times):.3f} ms; "
+        f"max_memory_allocated {peak} B ({card})")
+    profile_batches(pred, queries[:2 * pred.batch], card)
+    soft_check(tag, temporal_batch_card_vs_cpu, trainer.model, kg, kg_cpu,
+               pred.caps, queries[:pred.batch], tag)
+    # at the defaults (scan_src_backward=True) every bitmap hop past the
+    # first differentiates hidden[src] as differences of a float32 prefix
+    # sum over the hop's edges: noise of O(u * sum|g|) over ~10^6 rows,
+    # the JAX package's design, in another order on each device. Its
+    # gradients are held on the interpolation cell (whose one bitmap hop
+    # starts from zero states) and printed on the forecasting cell; the
+    # strict backward is held on both
+    soft_check(tag, temporal_step_card_vs_cpu, trainer.model, kg, kg_cpu,
+               cfg, f"{tag} scan_src_backward=True:", TEMPORAL_GRAD_RTOL,
+               TEMPORAL_GRAD_ATOL_REL, cfg.mode == "interpolation")
+    strict = TRedGNN(dataclasses.replace(trainer.model_cfg,
+                                         scan_src_backward=False),
+                     device="cuda")
+    strict.load_state_dict(trainer.model.state_dict())
+    soft_check(tag, temporal_step_card_vs_cpu, strict, kg, kg_cpu, cfg,
+               f"{tag} scan_src_backward=False:", TEMPORAL_GRAD_RTOL,
+               TEMPORAL_GRAD_ATOL_REL)
+    del strict
+    kernel = temporal_kernel_path(trainer, pred, queries, kg_cpu,
+                                  "[7b]" if tag == "[7a]" else tag, card)
+    step_ms, train_peak = temporal_train_check(trainer, tag, card)
+    temporal_profile_steps(trainer, card)
+    temporal_eval_check(trainer, tag, card)
+    kernel.update(serve_ms=float(np.mean(times)), step_ms=step_ms,
+                  walk_s=walk_s, serve_peak=peak, train_peak=train_peak)
+    return kernel
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script "
@@ -1218,11 +1773,22 @@ def main() -> int:
         write_umls_sized_kg(tmp)
         phase_defaults(tmp, card)
         kernel["dense"] = phase_dense_kernel(tmp, card)
+    kernel["temporal"] = {}
+    for entry, forecasting, tag in (("ICEWS14_TeMP", False, "[7a]"),
+                                    ("ICEWS14_forecasting", True, "[7c]")):
+        with tempfile.TemporaryDirectory() as tmp:
+            write_icews14_sized(tmp, forecasting)
+            kernel["temporal"][entry] = phase_temporal(tmp, entry, tag, card)
+    if FAILED:
+        print("chip_smoke: failed checks:\n" + "\n".join(FAILED),
+              file=sys.stderr)
+        return 1
     kernel["max_abs_err"] = max(
         [kernel["max_abs_err"]]
         + [r["max_abs_err"] for r in kernel["train_hops"]]
-        + [r["max_abs_err"] for k in ("serve", "train")
-           for r in kernel["dense"][k]])
+        + [r["max_abs_err"] for part in [kernel["dense"]]
+           + list(kernel["temporal"].values())
+           for k in ("serve", "train") for r in part[k]])
     log(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

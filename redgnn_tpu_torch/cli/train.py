@@ -1,21 +1,28 @@
-"""Training CLI of the port (static tasks).
+"""Training CLI of the port.
 
     python -m redgnn_tpu_torch.cli.train --task transductive \
         --data_path <dir with entities.txt, relations.txt, facts.txt, ...>
     python -m redgnn_tpu_torch.cli.train --task inductive \
         --data_path <DIR; reads DIR and DIR_ind, each with entities.txt,
                      relations.txt, train.txt, valid.txt, test.txt>
+    python -m redgnn_tpu_torch.cli.train --task interpolation \
+        --data_path <id dir (entity2id.txt, relation2id.txt, train.txt, ...)
+                     or name dir (train.txt, valid.txt, test.txt as TSV)>
+    python -m redgnn_tpu_torch.cli.train --task extrapolation \
+        --data_path <id dir, e.g. ICEWS14_forecasting>
 
 Port of ``redgnn_tpu/cli/train.py``. Per-dataset tuned hyperparameters
 load from the config registry (`redgnn_tpu_torch.utils.config`, keyed by
-the directory's name); any field can be overridden with
+the directory's name; an extrapolation dir ``X`` also finds the
+``X_forecasting`` entry); any field can be overridden with
 ``--set field=value``. The run happens on ``--device`` (default ``cuda``,
 which raises without a card; ``--device cpu`` trains on the host). The
 first line printed is the resolved config as JSON, the last one
-``BEST {...}``.
+``BEST {...}``. ``--load_checkpoint`` reads the port's ``.pt`` files and,
+for the temporal tasks, the JAX package's ``.msgpack`` checkpoints with
+their ``.host.json``.
 
-Not ported yet (each exits with a message): the interpolation and
-extrapolation tasks, ``--model xerte|simple``,
+Not ported yet (each exits with a message): ``--model xerte|simple``,
 ``--mesh``, ``--distributed``, ``--hpo``, ``--eval_splits``,
 ``--sqlite`` / ``--results_dir`` logging and ``--attention_stats``.
 """
@@ -60,8 +67,6 @@ def parse_overrides(pairs, cfg):
 
 def _refuse_unported(args) -> None:
     unported = {
-        f"--task {args.task}": args.task not in ("transductive",
-                                                  "inductive"),
         f"--model {args.model}": args.model != "redgnn",
         "--mesh": args.mesh is not None,
         "--distributed": args.distributed,
@@ -74,8 +79,26 @@ def _refuse_unported(args) -> None:
     asked = [name for name, given in unported.items() if given]
     if asked:
         raise SystemExit(f"{', '.join(asked)}: not ported yet (the PyTorch "
-                         "port trains the static transductive task on one "
-                         "device; use redgnn_tpu.cli.train for the rest)")
+                         "port trains RED-GNN on one device; use "
+                         "redgnn_tpu.cli.train for the rest)")
+
+
+def load_temporal_kg(data_path: str, cfg, device):
+    """The temporal KG of ``data_path`` as the reference protocol of
+    ``cfg.mode`` loads it: an id dir with inverse relations, the graph of
+    all splits and the first 48 hours of training queries dropped in
+    extrapolation (`Temporal/extrapolation/main.py:134`); a name dir
+    otherwise."""
+    from redgnn_tpu_torch.graph.temporal import TemporalKG
+
+    if os.path.exists(os.path.join(data_path, "entity2id.txt")):
+        ex = cfg.mode == "extrapolation"
+        return TemporalKG.load_id_dir(
+            data_path, add_inverse=True,
+            time_granularity=cfg.time_granularity,
+            graph_from_all_splits=ex, warm_start_time=48 if ex else 0,
+            device=device)
+    return TemporalKG.load_vocab_dir(data_path, device=device)
 
 
 def main(argv=None):
@@ -111,35 +134,64 @@ def main(argv=None):
 
     import torch
 
-    from redgnn_tpu_torch.train.loop import StaticTrainer
     from redgnn_tpu_torch.utils.checkpoint import EXT, load_latest
-    from redgnn_tpu_torch.utils.config import dataset_config
+    from redgnn_tpu_torch.utils.config import DATASET_CONFIGS, dataset_config
 
     # the port's arithmetic is fp32 throughout (see ops/gather.py)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     dataset = os.path.basename(args.data_path.rstrip("/"))
-    cfg = dataset_config(f"static_{args.task}", dataset)
-    if args.seed is not None:
-        cfg = dataclasses.replace(cfg, seed=args.seed)
-    cfg = parse_overrides(args.set, cfg)
-    if args.task == "transductive":
-        from redgnn_tpu_torch.graph.kg import StaticKG
+    if args.task in ("transductive", "inductive"):
+        from redgnn_tpu_torch.train.loop import StaticTrainer
 
-        kg = StaticKG.load(args.data_path, device=args.device)
+        cfg = dataset_config(f"static_{args.task}", dataset)
+        if args.seed is not None:
+            cfg = dataclasses.replace(cfg, seed=args.seed)
+        cfg = parse_overrides(args.set, cfg)
+        if args.task == "transductive":
+            from redgnn_tpu_torch.graph.kg import StaticKG
+
+            kg = StaticKG.load(args.data_path, device=args.device)
+        else:
+            from redgnn_tpu_torch.graph.inductive import InductiveKG
+
+            kg = InductiveKG.load(args.data_path, device=args.device)
+        trainer = StaticTrainer(kg, cfg)
     else:
-        from redgnn_tpu_torch.graph.inductive import InductiveKG
+        from redgnn_tpu_torch.train.temporal_loop import TemporalTrainer
 
-        kg = InductiveKG.load(args.data_path, device=args.device)
-    trainer = StaticTrainer(kg, cfg)
+        # an extrapolation dir named after the plain dataset resolves to
+        # its `<name>_forecasting` entry
+        cfg_key = dataset
+        if (args.task == "extrapolation"
+                and cfg_key not in DATASET_CONFIGS["temporal"]
+                and f"{cfg_key}_forecasting" in DATASET_CONFIGS["temporal"]):
+            cfg_key = f"{cfg_key}_forecasting"
+        cfg = dataset_config("temporal", cfg_key)
+        if args.task == "extrapolation" and cfg.mode != "extrapolation":
+            cfg = dataclasses.replace(cfg, mode="extrapolation", window=120)
+        if args.seed is not None:
+            cfg = dataclasses.replace(cfg, seed=args.seed)
+        cfg = parse_overrides(args.set, cfg)
+        trainer = TemporalTrainer(
+            load_temporal_kg(args.data_path, cfg, args.device), cfg)
     print(json.dumps(dataclasses.asdict(cfg)))
     trainer.timer.enabled = args.timer
+
+    def apply_lr_override():
+        # a temporal restore brings back the checkpoint's live lr; an
+        # explicit --set lr=... wins over it
+        if hasattr(trainer, "force_lr") and "lr" in {
+                p.partition("=")[0] for p in args.set or []}:
+            trainer.force_lr(cfg.lr)
+            print(f"lr override after restore: {cfg.lr}")
 
     start_epoch = 0
     if args.load_checkpoint:
         epoch = trainer.restore(args.load_checkpoint)
         print(f"restored checkpoint from epoch {epoch}")
+        apply_lr_override()
     elif args.resume_latest and args.ckpt_dir:
         try:
             latest = load_latest(args.ckpt_dir, trainer.state())
@@ -149,9 +201,10 @@ def main(argv=None):
         if latest is not None:
             state, start_epoch, _ = latest
             trainer.load_state(state)
-            # rng of the re-split from the JSON sidecar
+            # host state (re-split rng; temporal: lr, plateau, rngs)
             trainer.restore_host(os.path.join(args.ckpt_dir, "latest" + EXT))
             print(f"resuming from latest checkpoint at epoch {start_epoch}")
+            apply_lr_override()
 
     if args.eval_only:
         vm = trainer.evaluate("valid")

@@ -1,14 +1,17 @@
 """Per-hop capacity calibration for fixed-shape frontier expansion.
 
-Port of ``redgnn_tpu/graph/calibrate.py`` (static part). Every hop is
+Port of ``redgnn_tpu/graph/calibrate.py``. Every hop is
 bounded by a (node_cap, edge_cap) budget, measured host-side by simulating
 the exact expansion (numpy CSR walk) on sampled query batches, padded with
 headroom and rounded up. Keeping the shapes static keeps every
 intermediate comparable with the JAX package bit for bit, and leaves the
 door open to CUDA-graph capture.
 
-The numpy walk is the JAX package's own path when its native walker is
-unbuilt; the native walker is not ported yet.
+The static counts come from the JAX package's numpy edge walk (its path
+when its native walker is unbuilt; the native walker is not ported
+yet). The temporal counts come from a frontier-bitmap walk over scipy's
+sparse adjacency (`_walk_bitmap`): the same counts, at a cost that does
+not grow with the frontiers, which saturate on temporal graphs.
 """
 
 from __future__ import annotations
@@ -115,6 +118,135 @@ def per_query_counts(
     return ncs[inv], ecs[inv]
 
 
+def _walk_bitmap(adj_t, deg: np.ndarray, n_ent: int, heads: np.ndarray,
+                 n_layer: int, keep_frontier: bool
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-query node (n, n_layer+1) and edge (n, n_layer) counts of the
+    expansion from ``heads`` with every frontier as one 0/1 column of a
+    dense (n_ent, n) matrix: a hop's edge count is ``deg @ column`` and the
+    next frontier the nonzeros of ``adj_t @ column``. ``adj_t`` is the
+    (tail, head) adjacency (scipy CSR, multi-edges summed), ``deg`` the
+    edges each node expands; ``keep_frontier`` keeps every node in the
+    next frontier (its self-loop edge, which ``deg`` counts).
+
+    The counts equal those of the edge walk (`_walk`); the work is
+    |edges| x n per hop whatever the frontiers' sizes, which is what a
+    graph whose L-hop neighbourhoods cover it (a whole-timeline temporal
+    graph) needs, where the edge walk moves |edges| per query and hop."""
+    n = len(heads)
+    f = np.zeros((n_ent, n), np.float32)
+    f[heads, np.arange(n)] = 1.0
+    deg = deg.astype(np.float64)
+    node_counts = np.zeros((n, n_layer + 1), np.int64)
+    edge_counts = np.zeros((n, n_layer), np.int64)
+    node_counts[:, 0] = 1
+    for hop in range(n_layer):
+        edge_counts[:, hop] = np.rint(deg @ f)
+        nxt = (adj_t @ f) > 0
+        if keep_frontier:
+            nxt |= f > 0
+        node_counts[:, hop + 1] = nxt.sum(0)
+        f = nxt.astype(np.float32)
+    return node_counts, edge_counts
+
+
+def _bitmap_chunk(n_ent: int) -> int:
+    """Queries walked together by `_walk_bitmap`: a frontier matrix of
+    at most 64 MB."""
+    return max(1, (16 << 20) // max(n_ent, 1))
+
+
+def _adjacency_t(heads: np.ndarray, tails: np.ndarray, n_ent: int):
+    import scipy.sparse as sp
+
+    return sp.csr_matrix(
+        (np.ones(len(tails), np.float32), (tails, heads)),
+        shape=(n_ent, n_ent))
+
+
+def per_query_counts_dense(
+    rowptr: np.ndarray,
+    tail: np.ndarray,
+    n_ent: int,
+    heads: np.ndarray,
+    n_layer: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """`per_query_counts` (the same counts) through the frontier-bitmap
+    walk, for graphs whose frontiers saturate: unique heads are walked
+    once and broadcast back."""
+    heads = np.asarray(heads, np.int64)
+    uniq, inv = np.unique(heads, return_inverse=True)
+    rowptr = rowptr.astype(np.int64)
+    deg = np.diff(rowptr)
+    adj_t = _adjacency_t(np.repeat(np.arange(n_ent), deg), tail, n_ent)
+    ncs = np.zeros((len(uniq), n_layer + 1), np.int64)
+    ecs = np.zeros((len(uniq), n_layer), np.int64)
+    step = _bitmap_chunk(n_ent)
+    for lo in range(0, len(uniq), step):
+        sl = slice(lo, lo + step)
+        ncs[sl], ecs[sl] = _walk_bitmap(adj_t, deg, n_ent, uniq[sl],
+                                        n_layer, keep_frontier=False)
+    return ncs[inv], ecs[inv]
+
+
+def per_query_counts_windowed(
+    ekey: np.ndarray,
+    tail: np.ndarray,
+    n_ent: int,
+    key_base: int,
+    heads: np.ndarray,
+    times: np.ndarray,
+    window: int,
+    n_layer: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact per-query counts of the time-windowed (extrapolation)
+    expansion: a node of a query at time t expands the edges of its row
+    with time in [t - window, t) plus its self-loop, which keeps it in the
+    next frontier. ``ekey`` holds head * key_base + time per CSR slot,
+    sorted. Queries sharing a time share the window's graph: each unique
+    time is one bitmap walk (`_walk_bitmap`) of its unique heads."""
+    heads = np.asarray(heads, np.int64)
+    times = np.asarray(times, np.int64)
+    e_head = ekey.astype(np.int64) // key_base
+    e_time = ekey.astype(np.int64) % key_base
+    ncs = np.zeros((len(heads), n_layer + 1), np.int64)
+    ecs = np.zeros((len(heads), n_layer), np.int64)
+    step = _bitmap_chunk(n_ent)
+    for t in np.unique(times):
+        rows = np.nonzero(times == t)[0]
+        uniq, inv = np.unique(heads[rows], return_inverse=True)
+        sel = (e_time >= max(int(t) - window, 0)) & (e_time < t)
+        adj_t = _adjacency_t(e_head[sel], tail[sel].astype(np.int64), n_ent)
+        deg = np.bincount(e_head[sel], minlength=n_ent) + 1  # + self-loop
+        nc = np.zeros((len(uniq), n_layer + 1), np.int64)
+        ec = np.zeros((len(uniq), n_layer), np.int64)
+        for lo in range(0, len(uniq), step):
+            sl = slice(lo, lo + step)
+            nc[sl], ec[sl] = _walk_bitmap(adj_t, deg, n_ent, uniq[sl],
+                                          n_layer, keep_frontier=True)
+        ncs[rows], ecs[rows] = nc[inv], ec[inv]
+    return ncs, ecs
+
+
+def simulate_hops_windowed(
+    ekey: np.ndarray,          # (n_edges,) head*key_base+time, sorted
+    tail: np.ndarray,          # (n_edges,) CSR-ordered tails
+    n_ent: int,
+    key_base: int,
+    heads: np.ndarray,
+    times: np.ndarray,         # per-query time ids
+    window: int,
+    n_layer: int,
+) -> Tuple[List[int], List[int]]:
+    """Exact counts for the time-windowed (extrapolation) expansion of one
+    batch, including the always-present self-loop edge per frontier
+    node: the sum of its queries' rows (keys never collide across
+    queries)."""
+    nc, ec = per_query_counts_windowed(ekey, tail, n_ent, key_base, heads,
+                                       times, window, n_layer)
+    return [int(c) for c in nc.sum(0)], [int(c) for c in ec.sum(0)]
+
+
 def caps_for_batches(node_pq: np.ndarray, edge_pq: np.ndarray,
                      batch_size: int, slack: int = 8) -> FrontierCaps:
     """Exact caps covering every contiguous batch of the given per-query
@@ -153,6 +285,28 @@ def caps_upper_bound(node_pq: np.ndarray, edge_pq: np.ndarray,
     return FrontierCaps(tuple(node_caps), tuple(edge_caps))
 
 
+def _calibrate(sim_fn, n_queries, batch_size, n_ent, n_layer,
+               n_sample_batches, headroom, seed) -> FrontierCaps:
+    """Max frontier sizes of ``sim_fn(idx)`` over sampled batches of
+    query indices, with headroom."""
+    rng = np.random.default_rng(seed)
+    node_max = [batch_size] + [0] * n_layer
+    edge_max = [0] * n_layer
+    for _ in range(n_sample_batches):
+        idx = rng.choice(n_queries, size=min(batch_size, n_queries),
+                         replace=False)
+        nc, ec = sim_fn(idx)
+        for i in range(n_layer):
+            node_max[i + 1] = max(node_max[i + 1], nc[i + 1])
+            edge_max[i] = max(edge_max[i], ec[i])
+    node_caps = [batch_size] + [
+        min(_round_up(int(c * headroom) + 8), _round_up(batch_size * n_ent))
+        for c in node_max[1:]
+    ]
+    edge_caps = [_round_up(int(c * headroom) + 8) for c in edge_max]
+    return FrontierCaps(tuple(node_caps), tuple(edge_caps))
+
+
 def calibrate_caps(
     rowptr: np.ndarray,
     tail: np.ndarray,
@@ -165,19 +319,31 @@ def calibrate_caps(
     seed: int = 0,
 ) -> FrontierCaps:
     """Measure max frontier sizes over sampled batches, add headroom."""
-    rng = np.random.default_rng(seed)
-    node_max = [batch_size] + [0] * n_layer
-    edge_max = [0] * n_layer
-    n = len(query_heads)
-    for _ in range(n_sample_batches):
-        idx = rng.choice(n, size=min(batch_size, n), replace=False)
-        nc, ec = simulate_hops(rowptr, tail, n_ent, query_heads[idx], n_layer)
-        for i in range(n_layer):
-            node_max[i + 1] = max(node_max[i + 1], nc[i + 1])
-            edge_max[i] = max(edge_max[i], ec[i])
-    node_caps = [batch_size] + [
-        min(_round_up(int(c * headroom) + 8), _round_up(batch_size * n_ent))
-        for c in node_max[1:]
-    ]
-    edge_caps = [_round_up(int(c * headroom) + 8) for c in edge_max]
-    return FrontierCaps(tuple(node_caps), tuple(edge_caps))
+    return _calibrate(
+        lambda idx: simulate_hops(rowptr, tail, n_ent, query_heads[idx],
+                                  n_layer),
+        len(query_heads), batch_size, n_ent, n_layer, n_sample_batches,
+        headroom, seed)
+
+
+def calibrate_caps_windowed(
+    ekey: np.ndarray,
+    tail: np.ndarray,
+    n_ent: int,
+    key_base: int,
+    query_heads: np.ndarray,
+    query_times: np.ndarray,
+    window: int,
+    batch_size: int,
+    n_layer: int,
+    n_sample_batches: int = 6,
+    headroom: float = 1.2,
+    seed: int = 0,
+) -> FrontierCaps:
+    """`calibrate_caps` for the time-windowed expansion."""
+    return _calibrate(
+        lambda idx: simulate_hops_windowed(
+            ekey, tail, n_ent, key_base, query_heads[idx], query_times[idx],
+            window, n_layer),
+        len(query_heads), batch_size, n_ent, n_layer, n_sample_batches,
+        headroom, seed)

@@ -105,7 +105,14 @@ class Adam:
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(updates, new_state); the caller adds ``updates`` to ``params``.
         Nothing is modified in place."""
-        g = grads + self.lamb * params
+        direction, new = self.moments(grads + self.lamb * params, state)
+        return -self.learning_rate(state["count"]) * direction, new
+
+    def moments(self, g: torch.Tensor, state: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """optax ``scale_by_adam`` of gradient ``g``: the bias-corrected
+        direction ``mu_hat / (sqrt(nu_hat) + eps)`` and the new moments
+        and count."""
         mu = self.b1 * state["mu"] + (1 - self.b1) * g
         nu = self.b2 * state["nu"] + (1 - self.b2) * (g * g)
         count = state["count"] + 1
@@ -113,9 +120,8 @@ class Adam:
         # (scalar ** tensor: no scalar is copied to the device per step)
         mu_hat = mu / (1 - torch.pow(self.b1, t))
         nu_hat = nu / (1 - torch.pow(self.b2, t))
-        step = self.learning_rate(state["count"])
-        updates = -step * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
-        return updates, {"mu": mu, "nu": nu, "count": count}
+        return (mu_hat / (torch.sqrt(nu_hat) + self.eps),
+                {"mu": mu, "nu": nu, "count": count})
 
 
 def make_optimizer(cfg: TrainConfig, steps_per_epoch: int) -> Adam:
@@ -130,7 +136,59 @@ def _one_hot_rows(idx: torch.Tensor, n_ent: int) -> torch.Tensor:
     return out[:, :n_ent]
 
 
-class StaticTrainer:
+class FlatParams:
+    """Every parameter of ``self.model`` as a view of one flat vector
+    ``self._flat`` (state-dict order), so that the optimizer, the step
+    rejection and the scrub are a few launches over one tensor. A trainer
+    sets ``model``, ``device``, ``opt_state`` (a dict of tensors) and
+    ``rng`` (the device generator), then calls ``_init_flat``."""
+
+    def _init_flat(self) -> None:
+        named = list(self.model.named_parameters())
+        self._names = [n for n, _ in named]
+        self._params = [p for _, p in named]
+        sizes = [p.numel() for p in self._params]
+        self._slices = [slice(o - n, o) for n, o in
+                        zip(sizes, np.cumsum(sizes).tolist())]
+        self._flat = torch.cat([p.detach().reshape(-1)
+                                for p in self._params])
+        for p, sl in zip(self._params, self._slices):
+            p.data = self._flat[sl].view(p.shape)
+        self._owner = torch.repeat_interleave(
+            torch.arange(len(sizes)), torch.tensor(sizes)).to(self.device)
+
+    def _tree(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Named views of a flat vector laid out like the parameters."""
+        return {n: flat[sl].view(p.shape) for n, p, sl in
+                zip(self._names, self._params, self._slices)}
+
+    def _flatten(self, tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if tree.keys() != set(self._names):
+            raise ValueError("state names differ from the model's: "
+                             f"{sorted(tree.keys() ^ set(self._names))}")
+        return torch.cat([
+            tree[n].to(self.device, torch.float32).reshape(p.shape)
+            .reshape(-1) for n, p in zip(self._names, self._params)])
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The parameters by state-dict name (views, not copies)."""
+        return self._tree(self._flat)
+
+    def _snapshot(self):
+        return (self._flat.clone(),
+                {k: v.clone() for k, v in self.opt_state.items()},
+                self.rng.get_state())
+
+    def _rollback(self, snap) -> None:
+        flat, opt_state, rng_state = snap
+        self._flat.copy_(flat)
+        for k, v in opt_state.items():
+            self.opt_state[k].copy_(v)
+        self.rng.set_state(rng_state)
+
+
+class StaticTrainer(FlatParams):
     """Epoch loop for static KGC (transductive and inductive) on one
     device."""
 
@@ -166,19 +224,7 @@ class StaticTrainer:
                             generator=torch.Generator().manual_seed(cfg.seed))
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
-        # every parameter as a view of one flat vector, in state-dict order
-        named = list(self.model.named_parameters())
-        self._names = [n for n, _ in named]
-        self._params = [p for _, p in named]
-        sizes = [p.numel() for p in self._params]
-        self._slices = [slice(o - n, o) for n, o in
-                        zip(sizes, np.cumsum(sizes).tolist())]
-        self._flat = torch.cat([p.detach().reshape(-1)
-                                for p in self._params])
-        for p, sl in zip(self._params, self._slices):
-            p.data = self._flat[sl].view(p.shape)
-        self._owner = torch.repeat_interleave(
-            torch.arange(len(sizes)), torch.tensor(sizes)).to(self.device)
+        self._init_flat()
 
         self.steps_per_epoch = max(
             1, -(-len(kg.train_data) // cfg.n_batch)
@@ -201,25 +247,6 @@ class StaticTrainer:
         self.timer = PhaseTimer(enabled=False)
         # device-to-host reads made by train_epoch and evaluate
         self.host_syncs = 0
-
-    # ------------------------------------------------------------------
-    def _tree(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Named views of a flat vector laid out like the parameters."""
-        return {n: flat[sl].view(p.shape) for n, p, sl in
-                zip(self._names, self._params, self._slices)}
-
-    def _flatten(self, tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-        if tree.keys() != set(self._names):
-            raise ValueError("state names differ from the model's: "
-                             f"{sorted(tree.keys() ^ set(self._names))}")
-        return torch.cat([
-            tree[n].to(self.device, torch.float32).reshape(p.shape)
-            .reshape(-1) for n, p in zip(self._names, self._params)])
-
-    @property
-    def params(self) -> Dict[str, torch.Tensor]:
-        """The parameters by state-dict name (views, not copies)."""
-        return self._tree(self._flat)
 
     # ------------------------------------------------------------------
     def _train_step(self, subs, rels, objs, qmask, caps: FrontierCaps):
@@ -257,18 +284,6 @@ class StaticTrainer:
                                        len(self._params), self.rng))
             loss = torch.where(finite, loss, 0.0)
         return loss, overflow, aux["num_edges"]
-
-    def _snapshot(self):
-        return (self._flat.clone(),
-                {k: v.clone() for k, v in self.opt_state.items()},
-                self.rng.get_state())
-
-    def _rollback(self, snap) -> None:
-        flat, opt_state, rng_state = snap
-        self._flat.copy_(flat)
-        for k, v in opt_state.items():
-            self.opt_state[k].copy_(v)
-        self.rng.set_state(rng_state)
 
     def _run_chunk(self, batches: torch.Tensor, caps: FrontierCaps):
         """``batches`` (steps, 4, b) int32 on the device — rows subs, rels,

@@ -11,6 +11,10 @@ splits. The sidecar is optional on load.
 The device state (a nested dict of tensors) is serialised with
 ``torch.save`` and read back with ``torch.load(weights_only=True)`` onto
 the CPU; the caller copies it to its device.
+
+The JAX package's own checkpoints (flax msgpack, `{metric}.{epoch}.msgpack`)
+are read by `load_msgpack`, whose decoder is written here in Python: the
+card's machine has no ``msgpack`` package.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import json
 import os
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 EXT = ".pt"
@@ -142,3 +147,123 @@ def best_checkpoint(ckpt_dir: str) -> Optional[str]:
     if not ckpts:
         return None
     return max(ckpts, key=_metric_of)
+
+
+# ------------------------------------------------ flax msgpack checkpoints
+
+class _Reader:
+    """A msgpack decoder (the subset flax writes: maps, arrays, str, bin,
+    nil, bool, int, float, ext) over one bytes object. Ext type 1 is a
+    flax ndarray: the msgpack of (shape, dtype name, C-order bytes); ext 3
+    a numpy scalar in the same form; ext 2 a complex (real, imag)."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+        self.pos = 0
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise ValueError("truncated msgpack data")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def uint(self, n: int) -> int:
+        return int.from_bytes(self.take(n), "big")
+
+    def sint(self, n: int) -> int:
+        return int.from_bytes(self.take(n), "big", signed=True)
+
+    def value(self, text: bool = True):
+        c = self.uint(1)
+        if c <= 0x7F:
+            return c
+        if c >= 0xE0:
+            return c - 0x100
+        if 0x80 <= c <= 0x8F:
+            return self.map(c & 0x0F, text)
+        if 0x90 <= c <= 0x9F:
+            return [self.value(text) for _ in range(c & 0x0F)]
+        if 0xA0 <= c <= 0xBF:
+            return self.str(c & 0x1F, text)
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if c in simple:
+            return simple[c]
+        if c in (0xC4, 0xC5, 0xC6):  # bin 8/16/32
+            return self.take(self.uint(1 << (c - 0xC4)))
+        if c in (0xC7, 0xC8, 0xC9):  # ext 8/16/32
+            n = self.uint(1 << (c - 0xC7))
+            return self.ext(self.sint(1), self.take(n))
+        if c == 0xCA:
+            return float(np.frombuffer(self.take(4), ">f4")[0])
+        if c == 0xCB:
+            return float(np.frombuffer(self.take(8), ">f8")[0])
+        if 0xCC <= c <= 0xCF:
+            return self.uint(1 << (c - 0xCC))
+        if 0xD0 <= c <= 0xD3:
+            return self.sint(1 << (c - 0xD0))
+        if 0xD4 <= c <= 0xD8:  # fixext 1/2/4/8/16
+            code = self.sint(1)
+            return self.ext(code, self.take(1 << (c - 0xD4)))
+        if c in (0xD9, 0xDA, 0xDB):
+            return self.str(self.uint(1 << (c - 0xD9)), text)
+        if c in (0xDC, 0xDD):
+            return [self.value(text) for _ in range(self.uint(2 << (c - 0xDC)))]
+        if c in (0xDE, 0xDF):
+            return self.map(self.uint(2 << (c - 0xDE)), text)
+        raise ValueError(f"msgpack type byte {c:#x} is not supported")
+
+    def str(self, n: int, text: bool):
+        raw = self.take(n)
+        return raw.decode("utf-8") if text else raw
+
+    def map(self, n: int, text: bool) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.value(text)
+            out[k] = self.value(text)
+        return out
+
+    @staticmethod
+    def ext(code: int, payload: bytes):
+        if code in (1, 3):  # flax ndarray / numpy scalar
+            shape, dtype, buf = _Reader(payload).value(text=False)
+            arr = np.frombuffer(buf, dtype=np.dtype(dtype.decode()),
+                                count=-1).reshape(shape, order="C")
+            return arr if code == 1 else arr[()]
+        if code == 2:  # complex
+            re, im = _Reader(payload).value()
+            return complex(re, im)
+        raise ValueError(f"msgpack ext type {code} is not supported")
+
+
+def _unchunk(tree):
+    """flax splits arrays above 1 GiB into ``__msgpack_chunked_array__``
+    dicts; join them back."""
+    if not isinstance(tree, dict):
+        return tree
+    if "__msgpack_chunked_array__" in tree:
+        shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def msgpack_restore(data: bytes):
+    """``flax.serialization.msgpack_restore`` without msgpack or flax: the
+    nested dict of numpy arrays and Python values of a flax ``.msgpack``
+    checkpoint (arrays are read-only views of ``data``)."""
+    r = _Reader(data)
+    out = r.value()
+    if r.pos != len(data):
+        raise ValueError("trailing bytes after the msgpack object")
+    return _unchunk(out)
+
+
+def load_msgpack(path: str) -> Tuple[Dict[str, Any], int, float]:
+    """The JAX package's checkpoint file ``path`` (`{metric}.{epoch}.msgpack`
+    or `latest.msgpack`): (state tree of numpy arrays, epoch, metric)."""
+    with open(path, "rb") as f:
+        state = msgpack_restore(f.read())
+    meta = state.pop("_meta")
+    return state, int(meta[0]), float(meta[1])

@@ -1,13 +1,25 @@
-"""Carry the JAX package's RedGNN parameters and Adam state over to the port.
+"""Carry the JAX package's parameters and optimizer state over to the port.
 
-``params_from_flax`` maps the flax parameter tree of
-``redgnn_tpu.models.redgnn.RedGNN`` (a nested dict of arrays) onto the
-state dict of ``redgnn_tpu_torch.models.redgnn.RedGNN``. Flax ``Dense``
-kernels are (in, out) and torch ``Linear`` weights (out, in), so kernels
-are transposed; the GRU gate's (D, 3D) matrices become torch's (3D, D)
-layout with the same r|z|n gate order. ``opt_state_from_optax`` carries
-the Adam moments (trees of the parameters' shape) and the update count
-the same way, so both packages can continue from one optimizer state.
+``params_from_flax`` maps a flax parameter tree (a nested dict of arrays)
+onto the state dict of the port's model:
+
+  * ``redgnn_tpu.models.redgnn.RedGNN``: flax ``Dense`` kernels are
+    (in, out) and torch ``Linear`` weights (out, in), so kernels are
+    transposed; the GRU gate's (D, 3D) matrices become torch's (3D, D)
+    layout with the same r|z|n gate order;
+  * ``redgnn_tpu.models.temporal.TRedGNN``: its parameters are plain
+    arrays applied as ``x @ W`` on both sides, so names and layouts carry
+    over as they are.
+
+``opt_state_from_optax`` carries the static trainer's Adam moments and
+update count. ``temporal_opt_state_from_optax`` carries the temporal
+trainer's optimizer: ``inject_hyperparams`` over ``adamw`` or
+``add_decayed_weights -> scale_by_adam -> scale_by_learning_rate``,
+optionally behind ``clip_by_global_norm``, optionally wrapped by
+``MultiSteps``. It reads the optax state as a state dict
+(``flax.serialization.to_state_dict`` of the state, or the
+``opt_state`` of a decoded ``.msgpack`` checkpoint), so it needs neither
+optax nor flax.
 """
 
 from __future__ import annotations
@@ -18,14 +30,17 @@ import numpy as np
 import torch
 
 
+def _tensor(x, transpose: bool = False) -> torch.Tensor:
+    a = np.asarray(x, dtype=np.float32)
+    return torch.tensor(a.T if transpose else a)  # a contiguous copy
+
+
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict (CPU float32 tensors) of the port's RedGNN from a flax
-    RedGNN parameter tree (``variables["params"]``)."""
-
-    def t(x, transpose=False):
-        a = np.asarray(x, dtype=np.float32)
-        return torch.tensor(a.T if transpose else a)  # a contiguous copy
-
+    """State dict (CPU float32 tensors) of the port's RedGNN or TRedGNN
+    from the matching flax parameter tree (``variables["params"]``)."""
+    if "classifier_w" in tree:  # TRedGNN: one array per parameter
+        return {k: _tensor(v) for k, v in tree.items()}
+    t = _tensor
     sd: Dict[str, torch.Tensor] = {}
     layers = sorted((k for k in tree if k.startswith("layer_")),
                     key=lambda k: int(k.split("_")[1]))
@@ -53,3 +68,42 @@ def opt_state_from_optax(mu: Mapping, nu: Mapping, count) -> Dict:
     count in the optax chain always equals it."""
     return {"mu": params_from_flax(mu), "nu": params_from_flax(nu),
             "count": torch.tensor(int(np.asarray(count)), dtype=torch.int64)}
+
+
+def _find_adam(state):
+    """The ``ScaleByAdamState`` (a dict with count, mu and nu) inside an
+    optax chain's state dict; empty states are absent from it."""
+    if isinstance(state, Mapping):
+        if {"count", "mu", "nu"} <= state.keys():
+            return state
+        for v in state.values():
+            found = _find_adam(v)
+            if found is not None:
+                return found
+    return None
+
+
+def temporal_opt_state_from_optax(state: Mapping) -> Dict:
+    """The port's temporal optimizer state from an optax state dict:
+    ``{"mu", "nu"}`` (state dicts of the parameters' shape), ``count``
+    (updates applied to the moments), ``lr`` (the live learning rate of
+    ``inject_hyperparams``) and, under ``MultiSteps``, ``acc_grads``,
+    ``mini_step`` and ``gradient_step``."""
+    out: Dict = {}
+    if "inner_opt_state" in state:  # MultiSteps
+        out["acc_grads"] = params_from_flax(state["acc_grads"])
+        out["mini_step"] = torch.tensor(int(np.asarray(state["mini_step"])),
+                                        dtype=torch.int64)
+        out["gradient_step"] = torch.tensor(
+            int(np.asarray(state["gradient_step"])), dtype=torch.int64)
+        state = state["inner_opt_state"]
+    adam = _find_adam(state["inner_state"])
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    out["mu"] = params_from_flax(adam["mu"])
+    out["nu"] = params_from_flax(adam["nu"])
+    out["count"] = torch.tensor(int(np.asarray(adam["count"])),
+                                dtype=torch.int64)
+    out["lr"] = torch.tensor(
+        np.asarray(state["hyperparams"]["learning_rate"], np.float32))
+    return out

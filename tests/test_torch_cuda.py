@@ -460,3 +460,85 @@ def test_registry_default_eval_on_card_matches_cpu(card, tmp_path):
     for k in ("mrr", "h1", "h3", "h10"):
         assert metrics["cuda"][k] == pytest.approx(metrics["cpu"][k],
                                                    rel=1e-4), k
+
+
+def _temporal_dir(tmp_path, rng, n_ent=40, n_rel=3, n=400):
+    """A tiny id-based temporal dir (5-column quadruples, day stamps)."""
+    d = tmp_path / "toy_temporal"
+    d.mkdir()
+    (d / "entity2id.txt").write_text(
+        "".join(f"e{i}\t{i}\n" for i in range(n_ent)))
+    (d / "relation2id.txt").write_text(
+        "".join(f"r{i}\t{i}\n" for i in range(n_rel)))
+    q = np.stack([rng.integers(0, n_ent, n), rng.integers(0, n_rel, n),
+                  rng.integers(0, n_ent, n), rng.integers(0, 30, n)], 1)
+    for name, part in zip(("train", "valid", "test"),
+                          np.split(q, [int(n * 0.8), int(n * 0.9)])):
+        (d / f"{name}.txt").write_text(
+            "".join(f"{a}\t{b}\t{c}\t{t}\t0\n" for a, b, c, t in part))
+    return str(d)
+
+
+@pytest.mark.parametrize("mode", ["interpolation", "extrapolation"])
+def test_temporal_kernel_path_on_card_matches_cpu(card, tmp_path, mode):
+    """TRedGNN with sort dedup and the kernel (a sparse hop, then dense
+    hops in interpolation; windowed sparse hops in extrapolation) on the
+    card against the CPU: scores, aux and every parameter's gradient; the
+    kernel launches once per sparse hop and twice per dense hop."""
+    from redgnn_tpu_torch.graph.temporal import TemporalKG
+    from redgnn_tpu_torch.models.temporal import (
+        TemporalModelConfig,
+        TRedGNN,
+        temporal_hop_plan,
+    )
+    from redgnn_tpu_torch.train.temporal_loop import (
+        exact_caps,
+        nll_softmax_loss,
+    )
+    from redgnn_tpu_torch.utils.config import TemporalTrainConfig
+
+    path = _temporal_dir(tmp_path, np.random.default_rng(0))
+    ex = mode == "extrapolation"
+    tcfg = TemporalTrainConfig(mode=mode, window=6 if ex else None,
+                               n_layer=3, hidden_dim=12, batch_size=8)
+    kgs = {dev: TemporalKG.load_id_dir(path, graph_from_all_splits=ex,
+                                       device=dev) for dev in ("cpu", "cuda")}
+    kg = kgs["cpu"]
+    cfg = TemporalModelConfig(
+        n_ent=kg.n_ent, n_rel_vocab=kg.n_rel + 1, idd_rel=kg.idd_rel,
+        hidden_dim=12, attn_dim=5, n_layer=3, dropout=0.0, mode=mode,
+        window=tcfg.window, time_key_base=kg.time_key_base,
+        dedup_impl="sort", segment_impl="pallas", dense_switch=0.3)
+    quads = kg.splits["train"][:8]
+    caps = exact_caps(kg, tcfg, quads, 8)
+    plan = temporal_hop_plan(cfg, kg.graph.n_edges, caps, 8, True)
+    launches = len(plan) + plan.count("dense")
+    if not ex:
+        assert plan[0] == "sort" and "dense" in plan, plan
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = TRedGNN(cfg, device=dev)
+        g = kgs[dev]
+        b = [torch.as_tensor(quads[:, j].astype(np.int32), device=dev)
+             for j in range(4)]
+        qmask = torch.ones(8, dtype=torch.bool, device=dev)
+        graph, etime, ekey, sl, trp, dense = g.model_args()
+        before = segment_sum_sorted_checked.launches
+        scores, aux = model(graph, etime, b[0], b[1], b[3], qmask, caps,
+                            None, False, ekey, sl, trp, dense)
+        if dev == "cuda":
+            assert segment_sum_sorted_checked.launches - before == launches
+        nll_softmax_loss(scores, b[2], qmask).backward()
+        out[dev] = (scores.detach().cpu(),
+                    {k: v.cpu() for k, v in aux.items()},
+                    {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if p.grad is not None})
+    (s_c, a_c, g_c), (s_g, a_g, g_g) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(s_g, s_c, rtol=1e-5, atol=1e-5)
+    for k in ("num_nodes", "num_edges", "edge_overflow", "node_overflow"):
+        assert torch.equal(a_g[k], a_c[k]), k
+    assert g_g.keys() == g_c.keys()
+    for n in g_c:
+        scale = float(g_c[n].abs().max())
+        torch.testing.assert_close(g_g[n], g_c[n], rtol=1e-4,
+                                   atol=1e-5 * scale + 1e-9)

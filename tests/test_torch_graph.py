@@ -104,15 +104,15 @@ def test_calibrate_caps_equal(rng, b, n_layer, headroom):
 
 
 def test_config_registry_equal():
+    assert jcfg.DATASET_CONFIGS.keys() == tcfg.DATASET_CONFIGS.keys()
     for task, table in jcfg.DATASET_CONFIGS.items():
-        if task == "temporal":
-            with pytest.raises(NotImplementedError):
-                tcfg.dataset_config(task, "icews14_aug")
-            continue
         assert table.keys() == tcfg.DATASET_CONFIGS[task].keys()
-        for name in table:
+        for name in list(table) + ["not_in_the_registry"]:
             assert dataclasses.asdict(tcfg.dataset_config(task, name)) == \
                 dataclasses.asdict(jcfg.dataset_config(task, name))
+    assert len(tcfg.DATASET_CONFIGS["temporal"]) == 6
+    assert [f.name for f in dataclasses.fields(tcfg.TemporalTrainConfig)] == \
+        [f.name for f in dataclasses.fields(jcfg.TemporalTrainConfig)]
     got = tcfg.dataset_config("static_transductive", "family",
                               segment_impl="pallas", dense_hops=False)
     assert (got.hidden_dim, got.attn_dim, got.n_layer, got.act,

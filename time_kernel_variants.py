@@ -183,7 +183,7 @@ def main() -> int:
         calls = record_segment_sums(
             lambda: model(pred.graph, *batch_tensors(pred, q), pred.caps))
     dense_rows = []
-    for data, ids, n in [c for c in calls if c[2] == kg.n_ent][:2]:
+    for data, ids, n, _ in [c for c in calls if c[2] == kg.n_ent][:2]:
         per_query = data.shape[1] // pred.batch
         for width in (data.shape[1], cfg.n_batch * per_query):
             dense_rows.append(time_case(

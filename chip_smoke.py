@@ -61,6 +61,22 @@ Phases (any failure raises, and the script exits non-zero):
      6c. the family-sized KG of phase 4 at registry defaults (sort, then
          bitmap hops): one served batch and one train step (prefix-sum
          backward of the packed gather) against the CPU.
+  7. temporal RED-GNN on seeded id dirs of ICEWS14's sizes: 7a the
+     ICEWS14_TeMP entry at its defaults (serving, one batch and one step
+     against the CPU and a float64 reference, training, evaluation; the
+     seeded classifier made nonnegative and scaled by 1e-6 so that the
+     top-10 check compares ranks), 7b the same weights through the kernel,
+     7c the ICEWS14_forecasting entry and its kernel path.
+  8. the xERTE and SimplE baselines on 7c's dir: 8a xERTE at full width
+     (emb 256-128-64-32, 3 DP steps, K 15, 40 attended edges, batch 128,
+     cap factor 4) with XErteTrainer's seeded init: 8 timed forward
+     batches, a profile, one batch
+     against the CPU with the same draws (kept sets equal but for ties at
+     the cut, entity mass, visited, top-10); 8b one train step against the
+     CPU (sampling 'first'), 2 x 16 steps through train_epoch, a 16-batch
+     evaluate('valid'), a 2-step profile; 8c SimplETrainer (hidden 64,
+     batch 256): one step against the CPU, two whole epochs,
+     evaluate('valid'), a profile. Neither model reaches the kernel.
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero.
 """
@@ -492,23 +508,35 @@ def profile_report(prof, wall_us: float, n_units: int, unit: str, card):
     return events
 
 
-def profile_batches(pred, queries, card):
-    """Device busy share and the largest kernels over a few served
-    batches (torch.profiler)."""
+def profile_calls(fn, n_units: int, unit: str, card):
+    """torch.profiler over one call of ``fn``, which runs ``n_units``
+    batches or steps, after one warm call: idle share and the largest
+    kernels (`profile_report`, whose events it returns)."""
     from torch.profiler import ProfilerActivity, profile
 
-    b = pred.batch
+    fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return profile_report(prof, wall_us, n_units, unit, card)
+
+
+def profile_batches(pred, queries, card):
+    """Device busy share and the largest kernels over a few served
+    batches (torch.profiler)."""
+    b = pred.batch
+
+    def serve():
         for k in range(0, len(queries), b):
             q = queries[k:k + b]
             pred.predict(q[:, 0], q[:, 1], q[:, 3] if pred.temporal
                          else None)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    profile_report(prof, wall_us, -(-len(queries) // b), "batch", card)
+
+    profile_calls(serve, -(-len(queries) // b), "batch", card)
 
 
 def batch_card_vs_cpu(model, pred, q, tag: str):
@@ -730,20 +758,12 @@ def profile_steps(trainer, caps, card):
     device time of the kernels launched inside each of the trainer's
     record_function ranges (forward / backward / optimizer)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     batches = torch.stack([torch.stack(
         [t.to(torch.int32) for t in step_tensors(trainer, k)])
         for k in range(2)])
-    trainer._run_chunk(batches, caps)  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer._run_chunk(batches, caps)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = profile_report(prof, wall_us, 2, "step", card)
+    events = profile_calls(lambda: trainer._run_chunk(batches, caps), 2,
+                           "step", card)
     if events is None:
         return
     phases = ("step.forward", "step.backward", "step.optimizer")
@@ -1528,8 +1548,6 @@ def temporal_train_check(trainer, tag: str, card):
 
 def temporal_profile_steps(trainer, card):
     """torch.profiler over 2 train steps of the trainer (defaults)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from redgnn_tpu_torch.train.temporal_loop import exact_caps
 
     cfg, kg = trainer.cfg, trainer.kg
@@ -1540,16 +1558,9 @@ def temporal_profile_steps(trainer, card):
     batches = torch.stack(trainer._stage(quads, b, excl), 1)
     caps = trainer.caps["train"].union(exact_caps(kg, cfg, quads, b))
     snap = trainer._snapshot()
-    trainer._run_chunk(batches, caps)  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer._run_chunk(batches, caps)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    profile_calls(lambda: trainer._run_chunk(batches, caps), 2, "step",
+                  card)
     trainer._rollback(snap)
-    profile_report(prof, wall_us, 2, "step", card)
 
 
 def temporal_eval_check(trainer, tag: str, card):
@@ -1689,6 +1700,14 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
     kg = load_temporal_kg(data_dir, cfg, "cuda")
     kg_cpu = load_temporal_kg(data_dir, cfg, "cpu")
     trainer = TemporalTrainer(kg, cfg)
+    if cfg.mode == "interpolation":
+        # random weights drive the hidden states to ~1e7 over 4 hops and
+        # the seeded classifier scores every reached entity below the
+        # unreached ones' 0, so no top-10 rank was untied: a nonnegative
+        # classifier, scaled down, ranks reached entities by their states
+        # with scores in the tens
+        with torch.no_grad():
+            trainer.model.classifier_w.abs_().mul_(1e-6)
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     pred = Predictor.from_trainer(trainer, split="test", top_k=10)
@@ -1752,11 +1771,365 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
 
 
 
+# ------------------------------------------- phase 8: xERTE and SimplE
+
+X_CAP_FACTOR = 4.0        # the banked round-5 run's (its .host.json)
+X_BATCH = 128             # XErteTrainer's batch (the reference's)
+X_SERVED = 8              # timed forward batches of test quadruples
+X_STEPS = 16              # train steps per timed epoch, eval batches
+X_TIE_RTOL = 1e-5         # k-th and (k+1)-th target scores this close: a tie
+X_MASS_ATOL = 1e-5
+SIMPLE_HIDDEN, SIMPLE_BATCH = 64, 256
+
+
+def xerte_twin(model, cfg, device):
+    from redgnn_tpu_torch.models.xerte import XErte
+
+    twin = XErte(cfg, device=device)
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def xerte_forward(model, arrs, tkb: int, quads: np.ndarray, seed: int,
+                  draws=None):
+    rowptr, rel, tail, ekey = arrs
+    subs, rels, _, times, qmask = quad_tensors(quads, rowptr.device)
+    return model(rowptr, rel, tail, ekey, tkb, subs, rels, times, qmask,
+                 seed, draws)
+
+
+def kept_sets_agree(aux_g, aux_c, cfg, b: int):
+    """Per query and DP step, the multiset of kept target keys, card vs
+    CPU. A query whose sets differ must have a tie at the cut on the CPU
+    (its k-th and (k+1)-th target scores within X_TIE_RTOL); it is left
+    out of the later comparisons. Returns (agreeing queries (b,) bool,
+    ties, kept edges compared)."""
+    from redgnn_tpu_torch.models.xerte import INVALID
+
+    k, nkb = cfg.max_attended_edges, cfg.node_key_base
+    agree = np.ones(b, bool)
+    ties = compared = 0
+    for step, (sg, sc) in enumerate(zip(aux_g["steps"], aux_c["steps"])):
+        kg_, keep_g = sg["edge_keys"].cpu().numpy(), sg["keep"].cpu().numpy()
+        kc, keep_c = sc["edge_keys"].numpy(), sc["keep"].numpy()
+        score_c = sc["target_score"].detach().numpy()
+        eg_g = np.where(kg_ != INVALID, kg_ // nkb, b)
+        eg_c = np.where(kc != INVALID, kc // nkb, b)
+        for q in np.nonzero(agree)[0]:
+            a = np.sort(kg_[keep_g & (eg_g == q)])
+            c = np.sort(kc[keep_c & (eg_c == q)])
+            if np.array_equal(a, c):
+                compared += len(c)
+                continue
+            top = np.sort(score_c[(kc != INVALID) & (eg_c == q)])[::-1]
+            assert len(top) > k and abs(top[k - 1] - top[k]) <= \
+                X_TIE_RTOL * abs(top[k - 1]), (step, int(q), top[k - 1:k + 1])
+            ties += 1
+            agree[q] = False
+    return agree, ties, compared
+
+
+def xerte_batch_card_vs_cpu(trainer, arrs_cpu, quads, tag: str):
+    """One served batch (eval seed 0, the card's draws on both devices),
+    card vs CPU: kept sets equal but for ties at the cut, then on the
+    agreeing queries the entity mass within X_MASS_ATOL, `visited` equal
+    and the top-10 equal where untied. Printed, not held: how far each
+    float32 mass lies from a float64 CPU run of the same weights."""
+    from redgnn_tpu_torch.models.xerte import sample_draws
+
+    cfg, b = trainer.cfg, len(quads)
+    cpu = xerte_twin(trainer.model, cfg, "cpu")
+    ref = xerte_twin(trainer.model, cfg, "cpu").double()
+    draws = sample_draws(cfg, b, 0, "cuda")
+    tkb = trainer.kg.time_key_base
+    with torch.inference_mode():
+        m_g, aux_g = xerte_forward(trainer.model, trainer._kgarrs, tkb, quads,
+                                   0, draws)
+        m_c, aux_c = xerte_forward(cpu, arrs_cpu, tkb, quads, 0,
+                                   [d.cpu() for d in draws])
+        default = torch.get_default_dtype()
+        torch.set_default_dtype(torch.float64)
+        try:
+            m_d, _ = xerte_forward(ref, arrs_cpu, tkb, quads, 0,
+                                   [d.cpu() for d in draws])
+        finally:
+            torch.set_default_dtype(default)
+    assert torch.equal(aux_g["node_overflow"].cpu(), aux_c["node_overflow"])
+    agree, ties, compared = kept_sets_agree(aux_g, aux_c, cfg, b)
+    m_g = m_g.cpu()
+    assert bool(torch.isfinite(m_g).all())
+    rows = torch.as_tensor(np.nonzero(agree)[0])
+    diff = float((m_g[rows] - m_c[rows]).abs().max())
+    assert diff <= X_MASS_ATOL, diff
+    off64 = [float((m[rows].double() - m_d[rows]).abs().max())
+             for m in (m_g, m_c)]
+    assert torch.equal(aux_g["visited"].cpu()[rows], aux_c["visited"][rows])
+    tg, tc = torch.topk(m_g[rows], 11), torch.topk(m_c[rows], 11)
+    n_cmp = topk_untied_agree(tg.values.numpy(), tg.indices.numpy(),
+                              tc.values.numpy(), tc.indices.numpy(),
+                              X_MASS_ATOL)
+    log(f"{tag} card vs CPU, one batch of {b} (the same draws): kept "
+        f"target keys equal for {int(agree.sum())} of {b} queries "
+        f"({compared} kept edges over {cfg.dp_steps} steps), {ties} "
+        f"queries with a tie at the top-{cfg.max_attended_edges} cut "
+        f"(rtol {X_TIE_RTOL}); on those queries entity mass max |diff| "
+        f"{diff:.3g} (atol {X_MASS_ATOL}; off a float64 CPU run: card "
+        f"{off64[0]:.3g}, CPU {off64[1]:.3g}), visited equal, top-10 equal "
+        f"at {n_cmp} untied ranks; overflow flags "
+        f"{aux_c['node_overflow'].tolist()}")
+
+
+def xerte_step_card_vs_cpu(trainer, arrs_cpu, tag: str):
+    """One training step's loss and gradients at sampling='first', card
+    vs CPU, with the trainer's weights: loss rtol 1e-5, every parameter's
+    gradient within TEMPORAL_GRAD_RTOL + TEMPORAL_GRAD_ATOL_REL *
+    max|grad| (sums of ~10^5 messages in another order)."""
+    import dataclasses
+
+    from redgnn_tpu_torch.models.xerte import bce_loss
+
+    cfg = dataclasses.replace(trainer.cfg, sampling="first")
+    quads, _ = train_sample(trainer.kg, X_BATCH)
+    tkb = trainer.kg.time_key_base
+    out = {}
+    for name, model, arrs in (
+            ("cuda", xerte_twin(trainer.model, cfg, "cuda"), trainer._kgarrs),
+            ("cpu", xerte_twin(trainer.model, cfg, "cpu"), arrs_cpu)):
+        mass, aux = xerte_forward(model, arrs, tkb, quads, 1)
+        batch = quad_tensors(quads, arrs[0].device)
+        loss = bce_loss(mass, batch[2], batch[4])
+        params = list(model.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        out[name] = (float(loss.detach()), aux, [
+            torch.zeros(p.shape) if g is None else g.cpu()
+            for g, p in zip(grads, params)])
+    (l_g, aux_g, g_g), (l_c, aux_c, g_c) = out["cuda"], out["cpu"]
+    agree, ties, compared = kept_sets_agree(aux_g, aux_c, cfg, X_BATCH)
+    assert ties == 0, f"{ties} queries tie at the cut: gradients not held"
+    assert abs(l_g - l_c) <= 1e-5 * abs(l_c), (l_g, l_c)
+    worst = 0.0
+    for (name, _), a, b in zip(trainer.model.named_parameters(), g_g, g_c):
+        scale = float(b.abs().max())
+        err = float(((a - b).abs() - TEMPORAL_GRAD_RTOL * b.abs()).max())
+        assert err <= TEMPORAL_GRAD_ATOL_REL * scale, (name, err, scale)
+        if scale > 0:
+            worst = max(worst, float((a - b).abs().max()) / scale)
+    log(f"{tag} one train step, card vs CPU (sampling 'first', batch "
+        f"{X_BATCH}): loss {l_g:.7f} vs {l_c:.7f} (rtol 1e-5); kept target "
+        f"keys equal ({compared} edges); {len(g_c)} parameter gradients "
+        f"within rtol {TEMPORAL_GRAD_RTOL} + {TEMPORAL_GRAD_ATOL_REL} * "
+        f"max|grad|, worst max|diff| / max|grad| {worst:.3g}")
+
+
+def phase_xerte(data_dir: str, card):
+    """8a / 8b: xERTE at the reference's full width (emb 256-128-64-32, 3
+    DP steps, K 15, 40 attended edges, batch 128) from XErteTrainer's
+    seeded init on the ICEWS14_forecasting-sized dir. The entity mass is
+    L1-normalised per query, so the scores are bounded with any weights."""
+    from redgnn_tpu_torch.cli.train import load_temporal_kg
+    from redgnn_tpu_torch.models.xerte import XErteConfig
+    from redgnn_tpu_torch.train.temporal_loop import stage_quads
+    from redgnn_tpu_torch.train.xerte_loop import XErteTrainer
+    from redgnn_tpu_torch.utils.config import dataset_config
+
+    cfg = dataset_config("temporal", "ICEWS14_forecasting")
+    kg = load_temporal_kg(data_dir, cfg, "cuda")
+    kg_cpu = load_temporal_kg(data_dir, cfg, "cpu")
+    arrs_cpu = (kg_cpu.graph.rowptr, kg_cpu.graph.rel, kg_cpu.graph.tail,
+                kg_cpu.ekey)
+    t0 = time.perf_counter()
+    trainer = XErteTrainer(
+        kg, XErteConfig(n_ent=kg.n_ent, n_rel=kg.idd_rel,
+                        n_time=kg.n_time + 2, cap_factor=X_CAP_FACTOR),
+        batch_size=X_BATCH, max_train_batches=X_STEPS,
+        max_eval_batches=X_STEPS, seed=SEED, device="cuda")
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log(f"[8a] XErteTrainer(seed={SEED}, device='cuda') built in "
+        f"{init_s:.2f} s: {n_params} parameters, emb {trainer.cfg.emb_dim}, "
+        f"{trainer.cfg.dp_steps} DP steps, K {trainer.cfg.dp_num_edges}, "
+        f"{trainer.cfg.max_attended_edges} attended edges, sampling "
+        f"{trainer.cfg.sampling}, cap_factor {trainer.cfg.cap_factor}; "
+        f"{kg.n_ent} entities, {kg.graph.n_edges} edges")
+
+    # 8a: serving, eval seed 0
+    test = kg.splits["test"][:(X_SERVED + 1) * X_BATCH]
+    staged = stage_quads(test, X_BATCH, "cuda")
+
+    def serve(i):
+        subs, rels, _, times, qmask = staged[i]
+        with torch.inference_mode():
+            mass, aux = trainer._apply(subs, rels, times, qmask, 0)
+        return mass, aux
+
+    mass, aux = serve(0)  # warm; grows the caps as evaluate() would
+    for _ in range(6):
+        if not bool(aux["node_overflow"].any()):
+            break
+        trainer._grow_caps()
+        mass, aux = serve(0)
+    assert not bool(aux["node_overflow"].any())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(1, X_SERVED + 1):
+        t0 = time.perf_counter()
+        mass, aux = serve(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        sums = mass.sum(1)
+        assert bool(torch.isfinite(mass).all()) and bool(
+            ((sums - 1).abs() < 1e-3).all()), sums
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[8a] served {X_SERVED} batches of {X_BATCH} test quadruples "
+        f"(forward, entity mass; eval seed 0; cap factor "
+        f"{trainer.cfg.cap_factor}): per-batch ms "
+        f"{[round(t, 3) for t in times]}; mean {np.mean(times):.3f} ms, "
+        f"{X_BATCH / np.mean(times) * 1e3:.1f} queries/s; "
+        f"max_memory_allocated {peak} B ({card})")
+    profile_calls(lambda: [serve(i) for i in (1, 2)], 2, "batch", card)
+    soft_check("[8a]", xerte_batch_card_vs_cpu, trainer, arrs_cpu,
+               test[X_BATCH:2 * X_BATCH], "[8a]")
+
+    # 8b: training
+    soft_check("[8b]", xerte_step_card_vs_cpu, trainer, arrs_cpu, "[8b]")
+    cap0, count0 = trainer.cfg.cap_factor, int(trainer.opt_state["count"])
+    loss0 = trainer.train_epoch(0)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss1 = trainer.train_epoch(1)
+    step_s = (time.perf_counter() - t0) / X_STEPS
+    train_peak = torch.cuda.max_memory_allocated()
+    replays = int(round(np.log2(trainer.cfg.cap_factor / cap0)))
+    assert np.isfinite(loss0) and np.isfinite(loss1)
+    assert int(trainer.opt_state["count"]) == count0 + 2 * X_STEPS
+    log(f"[8b] 2 x {X_STEPS} steps through train_epoch (batch {X_BATCH}, "
+        f"Adam 1e-3 behind a global-norm clip at 1.0): loss sums "
+        f"{loss0:.4f}, {loss1:.4f}; the second epoch {step_s * 1e3:.3f} ms "
+        f"per step, {replays} overflow replays (cap_factor "
+        f"{trainer.cfg.cap_factor}); max_memory_allocated {train_peak} B "
+        f"({card})")
+    trainer.evaluate("valid")  # warm: stages the filters
+    t0 = time.perf_counter()
+    m = trainer.evaluate("valid")
+    eval_s = time.perf_counter() - t0
+    assert m["n"] == X_STEPS * X_BATCH, m["n"]
+    for pre in ("raw_", "fil_", "fil_t_"):
+        assert 0.0 <= m[pre + "mrr"] <= 1.0, m
+    assert m["fil_mrr"] >= m["raw_mrr"] - 1e-9
+    log(f"[8b] evaluate('valid'), first {X_STEPS} batches of {X_BATCH}: "
+        f"fil-MRR {m['fil_mrr']:.4f} raw-MRR {m['raw_mrr']:.4f} "
+        f"fil_t-MRR {m['fil_t_mrr']:.4f} found {m['found_rate']:.3f} "
+        f"(printed, not held: synthetic data); {eval_s:.3f} s, "
+        f"{m['n'] / eval_s:.1f} queries/s ({card})")
+
+    quads, _ = train_sample(kg, 2 * X_BATCH, seed=SEED + 1)
+    steps = stage_quads(quads, X_BATCH, "cuda")
+    snap = (trainer._flat.clone(),
+            {k: v.clone() for k, v in trainer.opt_state.items()})
+
+    def two_steps():
+        for i, (subs, rels, objs, times, qmask) in enumerate(steps):
+            trainer._train_step(subs, rels, objs, times, qmask, i + 1)
+
+    profile_calls(two_steps, 2, "step", card)
+    trainer._flat.copy_(snap[0])
+    for k, v in snap[1].items():
+        trainer.opt_state[k].copy_(v)
+    return {"serve_ms": float(np.mean(times)), "step_ms": step_s * 1e3,
+            "serve_peak": peak, "train_peak": train_peak}
+
+
+def simple_step_card_vs_cpu(trainer, kg_cpu, tag: str):
+    """One SimplE step's loss and gradients, card vs CPU from the same
+    weights: loss rtol 1e-5, gradients rtol 1e-4 + 1e-5 * max|grad|."""
+    from redgnn_tpu_torch.train.simple_loop import SimplETrainer, simple_loss
+
+    cpu = SimplETrainer(kg_cpu, hidden_dim=SIMPLE_HIDDEN,
+                        batch_size=SIMPLE_BATCH, device="cpu")
+    cpu.load_state(trainer.state())
+    quads, _ = train_sample(trainer.kg, SIMPLE_BATCH)
+    out = []
+    for t in (trainer, cpu):
+        subs, rels, objs, _, qmask = quad_tensors(quads, t.device)
+        loss = simple_loss(t.model(subs, rels), objs, qmask)
+        out.append((float(loss.detach()), [g.cpu() for g in torch.autograd.grad(
+            loss, list(t.model.parameters()))]))
+    (l_g, g_g), (l_c, g_c) = out
+    assert abs(l_g - l_c) <= 1e-5 * abs(l_c), (l_g, l_c)
+    worst = 0.0
+    for a, b in zip(g_g, g_c):
+        scale = float(b.abs().max())
+        assert float(((a - b).abs() - GRAD_RTOL * b.abs()).max()) <= \
+            GRAD_ATOL_REL * scale
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    log(f"{tag} one step, card vs CPU: loss {l_g:.6f} vs {l_c:.6f} (rtol "
+        f"1e-5); 4 parameter gradients within rtol {GRAD_RTOL} + "
+        f"{GRAD_ATOL_REL} * max|grad|, worst max|diff| / max|grad| "
+        f"{worst:.3g}")
+
+
+def phase_simple(data_dir: str, card):
+    """8c: SimplETrainer (hidden 64, batch 256) on the same dir: one step
+    against the CPU, whole training epochs and evaluate('valid')."""
+    from redgnn_tpu_torch.cli.train import load_temporal_kg
+    from redgnn_tpu_torch.train.simple_loop import SimplETrainer
+    from redgnn_tpu_torch.utils.config import dataset_config
+
+    cfg = dataset_config("temporal", "ICEWS14_forecasting")
+    kg = load_temporal_kg(data_dir, cfg, "cuda")
+    kg_cpu = load_temporal_kg(data_dir, cfg, "cpu")
+    trainer = SimplETrainer(kg, hidden_dim=SIMPLE_HIDDEN,
+                            batch_size=SIMPLE_BATCH, device="cuda")
+    soft_check("[8c]", simple_step_card_vs_cpu, trainer, kg_cpu, "[8c]")
+    n_steps = -(-len(kg.splits["train"]) // SIMPLE_BATCH)
+    loss0 = trainer.train_epoch(0)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss1 = trainer.train_epoch(1)
+    step_s = (time.perf_counter() - t0) / n_steps
+    peak = torch.cuda.max_memory_allocated()
+    assert np.isfinite(loss0) and loss1 < loss0, (loss0, loss1)
+    trainer.evaluate("valid")  # warm
+    t0 = time.perf_counter()
+    m = trainer.evaluate("valid")
+    eval_s = time.perf_counter() - t0
+    assert m["n"] == len(kg.splits["valid"])
+    assert 0.0 <= m["mrr"] <= 1.0 and m["h1"] <= m["h3"] <= m["h10"], m
+    log(f"[8c] SimplE (hidden {SIMPLE_HIDDEN}, batch {SIMPLE_BATCH}): 2 "
+        f"epochs of {n_steps} steps through train_epoch, loss sums "
+        f"{loss0:.2f}, {loss1:.2f}; the second {step_s * 1e3:.3f} ms per "
+        f"step; max_memory_allocated {peak} B; evaluate('valid') "
+        f"({int(m['n'])} queries) MRR {m['mrr']:.4f} in {eval_s:.3f} s, "
+        f"{m['n'] / eval_s:.1f} queries/s ({card})")
+    quads, _ = train_sample(kg, SIMPLE_BATCH, seed=SEED + 1)
+    subs, rels, objs, _, qmask = quad_tensors(quads, "cuda")
+    snap = (trainer._flat.clone(),
+            {k: v.clone() for k, v in trainer.opt_state.items()})
+    profile_calls(lambda: [trainer._train_step(subs, rels, objs, qmask)
+                           for _ in range(4)], 4, "step", card)
+    trainer._flat.copy_(snap[0])
+    for k, v in snap[1].items():
+        trainer.opt_state[k].copy_(v)
+    return {"step_ms": step_s * 1e3, "peak": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script "
               "measures the port on an NVIDIA GPU", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+    last = [t_start]
+
+    def took(what: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] {what}: {now - last[0]:.1f} s (script so far "
+            f"{now - t_start:.1f} s)")
+        last[0] = now
+
     name, smi = phase_device()
     card = smi
     phase_build()
@@ -1769,16 +2142,24 @@ def main() -> int:
         kernel["train_launches"], kernel["train_hops"] = phase_train(tmp,
                                                                      card)
         phase_family_defaults(tmp, card)
+    took("phases 1-5")
     with tempfile.TemporaryDirectory() as tmp:
         write_umls_sized_kg(tmp)
         phase_defaults(tmp, card)
         kernel["dense"] = phase_dense_kernel(tmp, card)
+    took("phase 6")
     kernel["temporal"] = {}
     for entry, forecasting, tag in (("ICEWS14_TeMP", False, "[7a]"),
                                     ("ICEWS14_forecasting", True, "[7c]")):
         with tempfile.TemporaryDirectory() as tmp:
             write_icews14_sized(tmp, forecasting)
             kernel["temporal"][entry] = phase_temporal(tmp, entry, tag, card)
+            took(f"phase {tag[1:-1]}")
+            if forecasting:  # phase 8 reuses 7c's dir
+                phase_xerte(tmp, card)
+                took("phase 8a-8b")
+                phase_simple(tmp, card)
+                took("phase 8c")
     if FAILED:
         print("chip_smoke: failed checks:\n" + "\n".join(FAILED),
               file=sys.stderr)

@@ -10,21 +10,28 @@
                      or name dir (train.txt, valid.txt, test.txt as TSV)>
     python -m redgnn_tpu_torch.cli.train --task extrapolation \
         --data_path <id dir, e.g. ICEWS14_forecasting>
+    python -m redgnn_tpu_torch.cli.train --task extrapolation \
+        --model xerte|simple --data_path <id dir>
 
 Port of ``redgnn_tpu/cli/train.py``. Per-dataset tuned hyperparameters
 load from the config registry (`redgnn_tpu_torch.utils.config`, keyed by
 the directory's name; an extrapolation dir ``X`` also finds the
 ``X_forecasting`` entry); any field can be overridden with
-``--set field=value``. The run happens on ``--device`` (default ``cuda``,
+``--set field=value``; with ``--model xerte`` a key that the temporal
+config lacks goes to ``XErteConfig`` (``sampling=uniform``,
+``dp_steps=2``, ...), and ``lr``, ``batch_size`` and ``grad_clip`` reach
+the xERTE trainer only when they are set explicitly (its defaults are the
+reference's: 1e-3, 128, 1.0). ``--model xerte|simple`` needs a temporal
+task. The run happens on ``--device`` (default ``cuda``,
 which raises without a card; ``--device cpu`` trains on the host). The
 first line printed is the resolved config as JSON, the last one
 ``BEST {...}``. ``--load_checkpoint`` reads the port's ``.pt`` files and,
-for the temporal tasks, the JAX package's ``.msgpack`` checkpoints with
-their ``.host.json``.
+for the temporal tasks and models, the JAX package's ``.msgpack``
+checkpoints with their ``.host.json``.
 
-Not ported yet (each exits with a message): ``--model xerte|simple``,
-``--mesh``, ``--distributed``, ``--hpo``, ``--eval_splits``,
-``--sqlite`` / ``--results_dir`` logging and ``--attention_stats``.
+Not ported yet (each exits with a message): ``--mesh``,
+``--distributed``, ``--hpo``, ``--eval_splits``, ``--sqlite`` /
+``--results_dir`` logging and ``--attention_stats``.
 """
 
 from __future__ import annotations
@@ -67,7 +74,6 @@ def parse_overrides(pairs, cfg):
 
 def _refuse_unported(args) -> None:
     unported = {
-        f"--model {args.model}": args.model != "redgnn",
         "--mesh": args.mesh is not None,
         "--distributed": args.distributed,
         "--hpo": args.hpo is not None,
@@ -79,7 +85,7 @@ def _refuse_unported(args) -> None:
     asked = [name for name, given in unported.items() if given]
     if asked:
         raise SystemExit(f"{', '.join(asked)}: not ported yet (the PyTorch "
-                         "port trains RED-GNN on one device; use "
+                         "port trains on one device; use "
                          "redgnn_tpu.cli.train for the rest)")
 
 
@@ -143,6 +149,9 @@ def main(argv=None):
 
     dataset = os.path.basename(args.data_path.rstrip("/"))
     if args.task in ("transductive", "inductive"):
+        if args.model != "redgnn":
+            raise SystemExit(f"--model {args.model} needs a temporal task "
+                             "(--task interpolation or extrapolation)")
         from redgnn_tpu_torch.train.loop import StaticTrainer
 
         cfg = dataset_config(f"static_{args.task}", dataset)
@@ -173,11 +182,46 @@ def main(argv=None):
             cfg = dataclasses.replace(cfg, mode="extrapolation", window=120)
         if args.seed is not None:
             cfg = dataclasses.replace(cfg, seed=args.seed)
-        cfg = parse_overrides(args.set, cfg)
-        trainer = TemporalTrainer(
-            load_temporal_kg(args.data_path, cfg, args.device), cfg)
+        set_pairs = list(args.set or [])
+        xerte_pairs = []
+        if args.model == "xerte":
+            # --set keys split between the trainer config and XErteConfig
+            xerte_pairs = [p for p in set_pairs
+                           if not hasattr(cfg, p.partition("=")[0])]
+            set_pairs = [p for p in set_pairs
+                         if hasattr(cfg, p.partition("=")[0])]
+        explicit_keys = {p.partition("=")[0] for p in set_pairs}
+        cfg = parse_overrides(set_pairs, cfg)
+        kg = load_temporal_kg(args.data_path, cfg, args.device)
+        if args.model == "xerte":
+            from redgnn_tpu_torch.models.xerte import XErteConfig
+            from redgnn_tpu_torch.train.xerte_loop import XErteTrainer
+
+            xcfg = parse_overrides(xerte_pairs, XErteConfig(
+                n_ent=kg.n_ent, n_rel=kg.idd_rel, n_time=kg.n_time + 2))
+            # the trainer's knobs keep the reference xERTE values unless
+            # set explicitly (by key, not by comparing values)
+            kwargs = {f: getattr(cfg, f) for f in ("lr", "batch_size",
+                                                   "grad_clip")
+                      if f in explicit_keys}
+            trainer = XErteTrainer(kg, xcfg, seed=cfg.seed,
+                                   grad_accum_steps=cfg.grad_accum_steps,
+                                   epochs=cfg.epochs,
+                                   max_train_batches=cfg.max_train_batches,
+                                   max_eval_batches=cfg.max_eval_batches,
+                                   device=args.device, **kwargs)
+        elif args.model == "simple":
+            from redgnn_tpu_torch.train.simple_loop import SimplETrainer
+
+            trainer = SimplETrainer(kg, seed=cfg.seed, epochs=cfg.epochs,
+                                    device=args.device)
+        else:
+            trainer = TemporalTrainer(kg, cfg)
     print(json.dumps(dataclasses.asdict(cfg)))
-    trainer.timer.enabled = args.timer
+    if hasattr(trainer, "timer"):
+        trainer.timer.enabled = args.timer
+    elif args.timer:
+        raise SystemExit("--timer supports the redgnn trainers only")
 
     def apply_lr_override():
         # a temporal restore brings back the checkpoint's live lr; an

@@ -13,9 +13,9 @@ contiguous slice of a row; the device side holds that CSR, the
 per-slot times and composite keys, each entity's self-loop slot, the
 (entity, time) -> first-slot table and the tail-sorted table of the
 dense hops, as int32 tensors on an explicit device.
-
-Not ported yet: `negative_sampling_objects` and `neighbor_subgraph`
-(they serve xERTE and the visualisation).
+`negative_sampling_objects` and `neighbor_subgraph` are the host-side
+numpy samplers of the xERTE tooling, driven by a `np.random.Generator`
+(the same draws as the JAX package's for the same seed).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from __future__ import annotations
 import os
 from collections import Counter
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -322,3 +322,62 @@ class TemporalKG:
     def exclusion_slots(self, example_rows: np.ndarray) -> np.ndarray:
         """CSR slots of the given original graph rows (leave-one-out)."""
         return self.row_to_slot[example_rows]
+
+    def negative_sampling_objects(self, q: int, split: str = "train",
+                                  start_time: int = 0,
+                                  rng: Optional[np.random.Generator] = None
+                                  ) -> np.ndarray:
+        """Q corrupted objects per quadruple with time >= start_time,
+        rejecting true (s, p, t) answers (`extrapolation/utils.py:123-159`;
+        vectorized rejection instead of the per-event while loop)."""
+        rng = rng or np.random.default_rng(0)
+        data = self.splits[split]
+        data = data[data[:, 3] >= start_time]
+        spt_o: Dict[tuple, set] = {}
+        for s, p, o, t in data:
+            spt_o.setdefault((s, p, t), set()).add(o)
+        out = np.empty((len(data), q), dtype=np.int64)
+        for i, (s, p, o, t) in enumerate(data):
+            true = spt_o[(s, p, t)]
+            # vectorized rejection: draw 2q+8, keep the first q survivors
+            row = []
+            while len(row) < q:
+                cand = rng.integers(0, self.n_ent, 2 * q + 8)
+                row.extend(int(c) for c in cand if c not in true)
+            out[i] = row[:q]
+        return out
+
+    def neighbor_subgraph(self, src: int, cut_time: int, level: int = 2,
+                          num_neighbors: int = 20,
+                          rng: Optional[np.random.Generator] = None
+                          ) -> Tuple[List[tuple], List[tuple]]:
+        """Recursive temporal neighborhood around (src, cut_time)
+        (`extrapolation/utils.py:501-531`, sans the networkx dependency):
+        per level, up to ``num_neighbors`` uniformly sampled historical
+        edges (t' < node cut time) per frontier node.
+
+        Returns (nodes, edges): nodes are (entity, rel_in, time) keys,
+        edges are (parent_key, child_key) pairs."""
+        rng = rng or np.random.default_rng(0)
+        rowptr, rel_a, tail_a = self.graph_np
+        time_a = self.etime_np
+        root = (int(src), None, int(cut_time))
+        nodes, edges = {root: True}, []
+        frontier = [root]
+        for _ in range(level):
+            nxt = []
+            for key in frontier:
+                ent, _, t = key
+                sl = slice(rowptr[ent], rowptr[ent + 1])
+                cand = np.nonzero(time_a[sl] < t)[0] + rowptr[ent]
+                if len(cand) > num_neighbors:
+                    cand = rng.choice(cand, num_neighbors, replace=False)
+                for s in cand:
+                    child = (int(tail_a[s]), int(rel_a[s]),
+                             int(time_a[s]))
+                    edges.append((key, child))
+                    if child not in nodes:
+                        nodes[child] = True
+                        nxt.append(child)
+            frontier = nxt
+        return list(nodes), edges

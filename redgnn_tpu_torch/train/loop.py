@@ -175,6 +175,23 @@ class FlatParams:
         """The parameters by state-dict name (views, not copies)."""
         return self._tree(self._flat)
 
+    def state(self) -> Dict[str, Any]:
+        """Parameters and optimizer state by name (views of the live
+        tensors; the checkpoint functions copy them to the host). The
+        optimizer's flat vectors (moments, accumulated gradients) appear
+        as trees laid out like the parameters."""
+        opt = {k: (self._tree(v) if k in ("mu", "nu", "acc_grads")
+                    else v)
+               for k, v in self.opt_state.items()}
+        return {"params": self.params, "opt_state": opt}
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        """Copy a `state()`-shaped tree (tensors on any device) in."""
+        self._flat.copy_(self._flatten(state["params"]))
+        for k, v in state["opt_state"].items():
+            self.opt_state[k].copy_(self._flatten(v) if isinstance(v, dict)
+                                    else v)
+
     def _snapshot(self):
         return (self._flat.clone(),
                 {k: v.clone() for k, v in self.opt_state.items()},
@@ -458,22 +475,6 @@ class StaticTrainer(FlatParams):
         raise RuntimeError("eval frontier caps failed to stabilize")
 
     # ------------------------------------------------------------------
-    def state(self) -> Dict[str, Any]:
-        """Parameters and optimizer state by name (views of the live
-        tensors; the checkpoint functions copy them to the host)."""
-        return {"params": self.params,
-                "opt_state": {"mu": self._tree(self.opt_state["mu"]),
-                              "nu": self._tree(self.opt_state["nu"]),
-                              "count": self.opt_state["count"]}}
-
-    def load_state(self, state: Dict[str, Any]) -> None:
-        """Copy a `state()`-shaped tree (tensors on any device) in."""
-        self._flat.copy_(self._flatten(state["params"]))
-        opt = state["opt_state"]
-        self.opt_state["mu"].copy_(self._flatten(opt["mu"]))
-        self.opt_state["nu"].copy_(self._flatten(opt["nu"]))
-        self.opt_state["count"].copy_(opt["count"])
-
     def host_state(self) -> Dict[str, Any]:
         # the numpy rng drives the per-epoch 3:1 graph re-split; carrying
         # it across restarts keeps the split sequence identical

@@ -50,18 +50,12 @@ from redgnn_tpu_torch.ops.ranking import (
 )
 from redgnn_tpu_torch.train.loop import Adam, FlatParams, nan_scrub
 from redgnn_tpu_torch.utils.checkpoint import (
-    _check_like,
-    load_checkpoint,
     load_host,
-    load_msgpack,
+    load_trainer_checkpoint,
     save_checkpoint,
     save_latest,
 )
 from redgnn_tpu_torch.utils.config import TemporalTrainConfig
-from redgnn_tpu_torch.utils.port_params import (
-    params_from_flax,
-    temporal_opt_state_from_optax,
-)
 from redgnn_tpu_torch.utils.timers import PhaseTimer
 
 RAW_SUMS = ("rr_sum", "h1_sum", "h3_sum", "h10_sum", "count", "loss_sum")
@@ -80,6 +74,18 @@ def nll_softmax_loss(scores: torch.Tensor, targets: torch.Tensor,
     per_row = -torch.log(p + 1e-12)
     denom = torch.clamp(torch.sum(qmask), min=1)
     return torch.sum(torch.where(qmask, per_row, 0.0)) / denom
+
+
+def stage_quads(data: np.ndarray, b: int, device) -> torch.Tensor:
+    """(nb, 5, b) int32 device batches of quadruples ``data``: rows subs,
+    rels, objs, times and qmask, zero-padded to whole batches (the JAX
+    trainers' ``_batches``)."""
+    nb = -(-len(data) // b)
+    rows = np.zeros((nb * b, 5), np.int32)
+    rows[:len(data), :4] = data[:, :4]
+    rows[:len(data), 4] = 1
+    return torch.as_tensor(rows.reshape(nb, b, 5).transpose(0, 2, 1).copy(),
+                           device=device)
 
 
 def stage_filter_indices(sp2o, spt2o, data, b: int, n_ent: int):
@@ -103,6 +109,20 @@ def stage_filter_indices(sp2o, spt2o, data, b: int, n_ent: int):
         return out.reshape(nb, b, m)
 
     return pack(fil_rows), pack(filt_rows)
+
+
+def answer_filters(splits) -> tuple:
+    """(s,p) -> sorted known objects and (s,p,t) -> sorted known objects
+    over the train, valid and test quadruples: the filters of the
+    extrapolation protocol (`Temporal/extrapolation/segment.py:346-387`)."""
+    sp2o: Dict[tuple, set] = defaultdict(set)
+    spt2o: Dict[tuple, set] = defaultdict(set)
+    for split in ("train", "valid", "test"):
+        for s, p, o, t in splits[split]:
+            sp2o[(s, p)].add(o)
+            spt2o[(s, p, t)].add(o)
+    return ({k: np.array(sorted(v)) for k, v in sp2o.items()},
+            {k: np.array(sorted(v)) for k, v in spt2o.items()})
 
 
 def _windowed(cfg: TemporalTrainConfig) -> bool:
@@ -641,14 +661,7 @@ class TemporalTrainer(FlatParams):
 
     def _filters(self):
         if not hasattr(self, "_sp2o"):
-            sp2o: Dict[tuple, set] = defaultdict(set)
-            spt2o: Dict[tuple, set] = defaultdict(set)
-            for split in ("train", "valid", "test"):
-                for s, p, o, t in self.kg.splits[split]:
-                    sp2o[(s, p)].add(o)
-                    spt2o[(s, p, t)].add(o)
-            self._sp2o = {k: np.array(sorted(v)) for k, v in sp2o.items()}
-            self._spt2o = {k: np.array(sorted(v)) for k, v in spt2o.items()}
+            self._sp2o, self._spt2o = answer_filters(self.kg.splits)
         return self._sp2o, self._spt2o
 
     # ------------------------------------------------------------------
@@ -674,22 +687,9 @@ class TemporalTrainer(FlatParams):
     def _sync_lr_from_opt(self) -> None:
         self._lr = float(self.opt_state["lr"])
 
-    def state(self) -> Dict[str, Any]:
-        """Parameters and optimizer state by name (views of the live
-        tensors). Host-side state — plateau counters, rngs — travels in the
-        checkpoint's JSON sidecar (host_state / restore_host)."""
-        opt = {k: (self._tree(v) if k in ("mu", "nu", "acc_grads") else v)
-               for k, v in self.opt_state.items()}
-        return {"params": self.params, "opt_state": opt}
-
-    def load_state(self, state: Dict[str, Any]) -> None:
-        """Copy a `state()`-shaped tree (tensors on any device) in."""
-        self._flat.copy_(self._flatten(state["params"]))
-        for k, v in state["opt_state"].items():
-            self.opt_state[k].copy_(self._flatten(v) if isinstance(v, dict)
-                                    else v)
-
     def host_state(self) -> Dict[str, Any]:
+        """Host-side state (plateau counters, rngs): the checkpoint's JSON
+        sidecar; `state()` holds the device tensors."""
         return {
             "lr": float(self._lr),
             "plateau_best": float(self._plateau_best),
@@ -728,19 +728,7 @@ class TemporalTrainer(FlatParams):
         checkpoint of this trainer (``.pt``) or of the JAX package's
         TemporalTrainer (``.msgpack`` with its ``.host.json``); a state of
         another structure (model shape, optimizer chain) raises."""
-        try:
-            if path.endswith(".msgpack"):
-                raw, epoch, _ = load_msgpack(path)
-                state = {"params": params_from_flax(raw["params"]),
-                         "opt_state": temporal_opt_state_from_optax(
-                             raw["opt_state"])}
-                _check_like(state, self.state(), "")
-            else:
-                state, epoch, _ = load_checkpoint(path, self.state())
-        except (KeyError, ValueError) as e:
-            raise RuntimeError(
-                f"checkpoint {path} does not match this trainer's state "
-                f"structure ({e})") from e
+        state, epoch = load_trainer_checkpoint(path, self.state())
         self.load_state(state)
         self.restore_host(path)
         return epoch

@@ -27,6 +27,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from redgnn_tpu_torch.utils.port_params import (
+    params_from_flax,
+    temporal_opt_state_from_optax,
+)
+
 EXT = ".pt"
 
 
@@ -267,3 +272,28 @@ def load_msgpack(path: str) -> Tuple[Dict[str, Any], int, float]:
         state = msgpack_restore(f.read())
     meta = state.pop("_meta")
     return state, int(meta[0]), float(meta[1])
+
+
+def load_trainer_checkpoint(path: str, template: Dict[str, Any],
+                            lr: Optional[float] = None
+                            ) -> Tuple[Dict[str, Any], int]:
+    """(state, epoch) of a flat-parameter trainer's checkpoint: the port's
+    ``.pt`` or the JAX package's ``.msgpack`` (parameters through
+    ``params_from_flax``, the optax state through
+    ``temporal_opt_state_from_optax``, which takes ``lr`` where the chain
+    keeps no learning rate). A state of another structure than
+    ``template`` (model shape, optimizer chain) raises RuntimeError."""
+    try:
+        if path.endswith(".msgpack"):
+            raw, epoch, _ = load_msgpack(path)
+            state = {"params": params_from_flax(raw["params"]),
+                     "opt_state": temporal_opt_state_from_optax(
+                         raw["opt_state"], lr)}
+            _check_like(state, template, "")
+        else:
+            state, epoch, _ = load_checkpoint(path, template)
+    except (KeyError, ValueError) as e:
+        raise RuntimeError(
+            f"checkpoint {path} does not match this trainer's state "
+            f"structure ({e})") from e
+    return state, epoch

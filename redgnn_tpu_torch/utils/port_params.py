@@ -16,7 +16,8 @@ update count. ``temporal_opt_state_from_optax`` carries the temporal
 trainer's optimizer: ``inject_hyperparams`` over ``adamw`` or
 ``add_decayed_weights -> scale_by_adam -> scale_by_learning_rate``,
 optionally behind ``clip_by_global_norm``, optionally wrapped by
-``MultiSteps``. It reads the optax state as a state dict
+``MultiSteps``, and the xERTE / SimplE trainers' plain ``adam`` (the
+learning rate is then not in the state and comes from the caller). It reads the optax state as a state dict
 (``flax.serialization.to_state_dict`` of the state, or the
 ``opt_state`` of a decoded ``.msgpack`` checkpoint), so it needs neither
 optax nor flax.
@@ -35,11 +36,28 @@ def _tensor(x, transpose: bool = False) -> torch.Tensor:
     return torch.tensor(a.T if transpose else a)  # a contiguous copy
 
 
+def _dotted(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """flax tree -> torch state dict by name: ``a/b/kernel`` becomes
+    ``a.b.weight`` (transposed), every other leaf keeps its name."""
+    sd: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            sd.update(_dotted(v, f"{prefix}{k}."))
+        elif k == "kernel":
+            sd[f"{prefix}weight"] = _tensor(v, True)
+        else:
+            sd[f"{prefix}{k}"] = _tensor(v)
+    return sd
+
+
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict (CPU float32 tensors) of the port's RedGNN or TRedGNN
-    from the matching flax parameter tree (``variables["params"]``)."""
+    """State dict (CPU float32 tensors) of the port's RedGNN, TRedGNN,
+    XErte or SimplE from the matching flax parameter tree
+    (``variables["params"]``)."""
     if "classifier_w" in tree:  # TRedGNN: one array per parameter
         return {k: _tensor(v) for k, v in tree.items()}
+    if "transition_fn_0" in tree or "ent_embs_h" in tree:  # XErte, SimplE
+        return _dotted(tree)
     t = _tensor
     sd: Dict[str, torch.Tensor] = {}
     layers = sorted((k for k in tree if k.startswith("layer_")),
@@ -83,12 +101,13 @@ def _find_adam(state):
     return None
 
 
-def temporal_opt_state_from_optax(state: Mapping) -> Dict:
+def temporal_opt_state_from_optax(state: Mapping,
+                                  lr: float | None = None) -> Dict:
     """The port's temporal optimizer state from an optax state dict:
     ``{"mu", "nu"}`` (state dicts of the parameters' shape), ``count``
     (updates applied to the moments), ``lr`` (the live learning rate of
-    ``inject_hyperparams``) and, under ``MultiSteps``, ``acc_grads``,
-    ``mini_step`` and ``gradient_step``."""
+    ``inject_hyperparams``, else the given ``lr``) and, under
+    ``MultiSteps``, ``acc_grads``, ``mini_step`` and ``gradient_step``."""
     out: Dict = {}
     if "inner_opt_state" in state:  # MultiSteps
         out["acc_grads"] = params_from_flax(state["acc_grads"])
@@ -97,13 +116,16 @@ def temporal_opt_state_from_optax(state: Mapping) -> Dict:
         out["gradient_step"] = torch.tensor(
             int(np.asarray(state["gradient_step"])), dtype=torch.int64)
         state = state["inner_opt_state"]
-    adam = _find_adam(state["inner_state"])
+    adam = _find_adam(state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    if "hyperparams" in state:
+        lr = state["hyperparams"]["learning_rate"]
+    elif lr is None:
+        raise ValueError("the optax state holds no learning rate; pass lr")
     out["mu"] = params_from_flax(adam["mu"])
     out["nu"] = params_from_flax(adam["nu"])
     out["count"] = torch.tensor(int(np.asarray(adam["count"])),
                                 dtype=torch.int64)
-    out["lr"] = torch.tensor(
-        np.asarray(state["hyperparams"]["learning_rate"], np.float32))
+    out["lr"] = torch.tensor(np.asarray(lr, np.float32))
     return out

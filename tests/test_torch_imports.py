@@ -30,7 +30,12 @@ NEWER_MODULES = ("redgnn_tpu_torch.graph.inductive",
                  "redgnn_tpu_torch.ops.ranking",
                  "redgnn_tpu_torch.graph.temporal",
                  "redgnn_tpu_torch.models.temporal",
-                 "redgnn_tpu_torch.train.temporal_loop")
+                 "redgnn_tpu_torch.train.temporal_loop",
+                 "redgnn_tpu_torch.graph.preprocess",
+                 "redgnn_tpu_torch.models.xerte",
+                 "redgnn_tpu_torch.models.baselines",
+                 "redgnn_tpu_torch.train.xerte_loop",
+                 "redgnn_tpu_torch.train.simple_loop")
 
 
 def _clean_env():

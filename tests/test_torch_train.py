@@ -541,9 +541,10 @@ def test_cli_transductive_cpu(kg_dir, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--eval_splits", "valid"], ["--task", "interpolation", "--model", "xerte"],
-    ["--task", "extrapolation", "--mesh", "2"], ["--model", "xerte"],
-    ["--model", "simple"],
+    ["--eval_splits", "valid"], ["--task", "interpolation", "--distributed"],
+    ["--task", "extrapolation", "--mesh", "2"],
+    ["--task", "extrapolation", "--model", "xerte", "--mesh", "2"],
+    ["--task", "extrapolation", "--model", "simple", "--hpo", "4"],
     ["--mesh", "2"], ["--hpo", "4"], ["--sqlite", "x.db"],
     ["--results_dir", "results"], ["--attention_stats", "a.npz"],
 ])

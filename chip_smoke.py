@@ -77,6 +77,22 @@ Phases (any failure raises, and the script exits non-zero):
      evaluate('valid'), a 2-step profile; 8c SimplETrainer (hidden 64,
      batch 256): one step against the CPU, two whole epochs,
      evaluate('valid'), a profile. Neither model reaches the kernel.
+  9. the mesh on the one card (two ranks share it through gloo: the
+     numbers read correctness, not multi-GPU speed): 9a mesh 1x2 of the
+     family entry with the kernel (each rank sums half of every sparse
+     hop's edges, then the ranks all-reduce the aggregates): one step's
+     loss and gradients against the single-process step on the card,
+     the kernel at each rank's real slices against its plain version,
+     its launches per rank per step counted, 2 x 16 steps timed, a
+     profile, evaluate('valid') against the single process on the same
+     weights, query by query (a near-tie may rank either way in another
+     summation order); 9b the same at 2x1, and TemporalTrainer at 2x1 on
+     7c's forecasting-sized data (one step and the evaluation against the
+     single process, its scores against a float64 run); 9c a 1x1 mesh
+     through NCCL: one step bit-equal to mesh=None with the same flags;
+     9d the CLI: one epoch of --mesh 1x1 --results_dir --sqlite
+     --eval_splits writes its reports, and --mesh 2x1 on a one-GPU host
+     exits non-zero with its reason.
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero.
 """
@@ -1353,33 +1369,34 @@ def cpu_twin(model):
     return cpu
 
 
-def reference_scores(model, kg_cpu, quads, caps, exclude=None):
-    """The scores of ``model``'s weights on ``quads``, computed on the CPU
-    in float64 (weights and every state; the default dtype is float64
-    during the call), with plain sums (segment_impl 'xla') and the plain
-    src gather (scan_src_backward off), which change no value of the
-    forward: the reference that the card's and the CPU's float32 scores
-    are held to."""
+def reference_scores(model, kg_cpu, quads, caps, exclude=None,
+                     device: str = "cpu"):
+    """The scores of ``model``'s weights on ``quads``, computed in float64
+    (weights and every state; the default dtype is float64 during the
+    call) on ``device`` (``kg_cpu``'s), with plain sums (segment_impl
+    'xla') and the plain src gather (scan_src_backward off), which change
+    no value of the forward: the reference that the card's and the CPU's
+    float32 scores are held to. Returned on the CPU."""
     import dataclasses
 
     from redgnn_tpu_torch.models.temporal import TRedGNN
 
     cfg = dataclasses.replace(model.cfg, segment_impl="xla",
                               scan_src_backward=False)
-    ref = TRedGNN(cfg, device="cpu").double()
-    ref.load_state_dict({k: v.to("cpu", torch.float64)
+    ref = TRedGNN(cfg, device=device).double()
+    ref.load_state_dict({k: v.to(device, torch.float64)
                          for k, v in model.state_dict().items()})
     default = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)
     try:
         with torch.inference_mode():
             scores, _ = temporal_forward(ref, kg_cpu,
-                                         quad_tensors(quads, "cpu"), caps,
+                                         quad_tensors(quads, device), caps,
                                          exclude)
     finally:
         torch.set_default_dtype(default)
     assert scores.dtype == torch.float64, scores.dtype
-    return scores
+    return scores.cpu()
 
 
 def temporal_scores_agree(s_gpu, s_cpu, s_ref):
@@ -2116,6 +2133,545 @@ def phase_simple(data_dir: str, card):
     return {"step_ms": step_s * 1e3, "peak": peak}
 
 
+# ------------------------------------------------- phase 9: multi-GPU
+
+MESH_STEPS = 16  # steps of each timed epoch under a mesh
+# two ranks on one card go through gloo (NCCL refuses a GPU twice): the
+# times below measure the path's correctness, not multi-GPU speed
+SHARED_CARD = "two ranks share one card through gloo: correctness, not " \
+    "multi-GPU speed"
+
+
+def mesh_config(dropout: float = 0.0):
+    """The family entry at full width with the kernel on every hop."""
+    from redgnn_tpu_torch.utils.config import dataset_config
+
+    return dataset_config("static_transductive", "family", **KERNEL_SLICE,
+                          scan_chunk=MESH_STEPS, dropout=dropout)
+
+
+def mesh_trainer(data_dir: str, cfg, mesh=None, device: str = "cuda"):
+    """A StaticTrainer of ``cfg`` (under ``mesh``) on the first MESH_STEPS
+    batches of the synthetic KG's training queries, with the exact caps
+    of its shards."""
+    from redgnn_tpu_torch.graph.kg import StaticKG
+    from redgnn_tpu_torch.train.loop import StaticTrainer
+
+    kg = StaticKG.load(data_dir, device=mesh.device if mesh else device)
+    kg.train_data = kg.train_data[:MESH_STEPS * cfg.n_batch]
+    tr = StaticTrainer(kg, cfg, mesh=mesh)
+    caps = tr._recalibrate_exact(tr.train_caps, kg.graph_np, kg.train_data,
+                                 cfg.n_batch // tr.n_data)
+    return tr, caps
+
+
+def mesh_static_rank(mesh, data_dir: str, tag: str, card):
+    """One rank of 9a / 9b: one step's loss and summed gradient, the
+    kernel's launches in it and the kernel at this rank's real hop inputs
+    against its plain version (the ranks take turns on the card), 2 x 16
+    steps through train_epoch, a profile of 2 steps on rank 0, and
+    evaluate('valid') under the mesh."""
+    from redgnn_tpu_torch.ops.segment_sorted import segment_sum_sorted_checked
+    from redgnn_tpu_torch.train import loop as train_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag = f"{tag} rank {mesh.rank} {tuple(mesh.coords.values())}"
+    tr, caps = mesh_trainer(data_dir, mesh_config(), mesh)
+    batch = step_tensors(tr, 0)  # the global batch; the rank takes its shard
+    out = []
+    segment_sum_sorted_checked.launches = 0
+    calls = record_segment_sums(
+        lambda: out.append(tr._loss_and_grads(*batch, caps)))
+    torch.cuda.synchronize()
+    launches = segment_sum_sorted_checked.launches
+    loss, g, overflow, _ = out[0]
+    assert not bool(overflow)
+    assert launches == tr.cfg.n_layer, launches
+    rows = []
+    for turn in range(mesh.size()):
+        if turn == mesh.rank:
+            rows = dense_kernel_check(calls, None, tag, card)
+        mesh.barrier()
+    steps = len(tr.kg.train_data) // tr.cfg.n_batch
+    tr.train_epoch(0)  # warm-up: allocator, cuBLAS, the caps walk
+    tr.timer.enabled = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flat0 = tr._flat.clone()
+    loss2 = tr.train_epoch(1)
+    seconds = tr.timer.buckets["train"]["device"]
+    peak = torch.cuda.max_memory_allocated()
+    assert int(tr.opt_state["count"]) == 2 * steps
+    assert np.isfinite(loss2) and not torch.equal(tr._flat, flat0)
+    log(f"{tag}: {steps} steps through train_epoch {seconds / steps * 1e3:.3f}"
+        f" ms per step (loss sum {loss2:.2f}); max_memory_allocated {peak} B"
+        f" ({SHARED_CARD}; {card})")
+    batches = torch.stack([torch.stack([t.to(torch.int32) for t in
+                                        step_tensors(tr, k)])
+                           for k in range(2)])
+    snap = tr._snapshot()
+    if mesh.rank == 0:
+        profile_calls(lambda: tr._run_chunk(batches, caps), 2, "step", card)
+    else:  # the same two calls, unprofiled: every collective is matched
+        for _ in range(2):
+            tr._run_chunk(batches, caps)
+        torch.cuda.synchronize()
+    tr._rollback(snap)
+    tr.evaluate("valid")  # calibrates the split's caps, warms up
+    t0 = time.perf_counter()
+    tr.evaluate("valid")
+    eval_s = time.perf_counter() - t0
+    m, inputs = recorded_eval(lambda: tr.evaluate("valid"), train_loop,
+                              STATIC_EVAL)
+    return {"loss": float(loss), "g": g.cpu(), "launches": launches,
+            "rows": rows, "ms_per_step": seconds / steps * 1e3,
+            "peak": peak, "metrics": m, "eval_inputs": inputs,
+            "eval_s": eval_s,
+            "params": {k: v.cpu().clone() for k, v in tr.params.items()}}
+
+
+def grads_agree(names, slices, got: torch.Tensor, want: torch.Tensor,
+                rtol: float, atol_rel: float) -> float:
+    """Every parameter's gradient within ``rtol`` * |want| + ``atol_rel`` *
+    max|want|; returns the worst max|diff| / max|want|."""
+    worst = 0.0
+    for name, sl in zip(names, slices):
+        a, b = got[sl], want[sl]
+        scale = float(b.abs().max())
+        err = float(((a - b).abs() - rtol * b.abs()).max())
+        assert err <= atol_rel * scale, (name, err, scale)
+        if scale > 0:
+            worst = max(worst, float((a - b).abs().max()) / scale)
+    return worst
+
+
+def metrics_agree(got: dict, want: dict, keys) -> None:
+    for k in keys:
+        assert abs(got[k] - want[k]) <= 1e-5 * abs(want[k]), (k, got[k],
+                                                               want[k])
+
+
+# A meshed eval sums its scores in another order than the single process
+# (other batch shapes, gloo's sum of the edge ranks), so a candidate whose
+# score lies within float noise of the answer's may rank on either side of
+# it: one such flip at rank ~40 moves a 512-query MRR by ~1.5e-5 of itself.
+# So the evaluation is held query by query: the scores close (below),
+# answers, filters and visited sets equal, and the metrics the ones those
+# inputs rank to. The static scores are held to the single process's
+# within EVAL_TOL of the row's largest |score|. The forecasting model's
+# sums cancel (phase 7c), so its float32 scores lie up to ~2.3e-4 of that
+# scale off float64 in a 512-query eval, single process and mesh alike:
+# they are held, as 7c holds the card to the CPU, to a float64 run of the
+# same weights, within EVAL_TOL or twice the single process's own largest
+# error over the eval, whichever is larger.
+EVAL_TOL = 1e-4
+# What the recorded arguments of each function are held to: "~" within
+# EVAL_TOL of the row's largest |value|, "f" against the float64 scores
+# as above, "=" equal, "." measured only (the frontier softmax, a function
+# of the held scores and visited sets).
+STATIC_EVAL = {"rank_metric_sums": "~=="}
+TEMPORAL_EVAL = {"nll_softmax_loss": "f==",
+                 "frontier_rank_metric_sums": ".====="}
+
+
+def recorded_eval(evaluate, module, roles: dict):
+    """(metrics, inputs) of ``evaluate()``; ``inputs[name]`` lists, batch
+    by batch, host copies of the arguments of the function ``module.name``
+    for each name of ``roles``. Call it on caps that ``evaluate`` has
+    already calibrated (an overflow would record a batch twice; the
+    comparisons see that)."""
+    origs = {name: getattr(module, name) for name in roles}
+    seen = {name: [] for name in roles}
+
+    def recorder(name):
+        def record(*args):
+            seen[name].append(tuple(a.detach().cpu() for a in args))
+            return origs[name](*args)
+        return record
+
+    try:
+        for name in roles:
+            setattr(module, name, recorder(name))
+        return evaluate(), seen
+    finally:
+        for name, fn in origs.items():
+            setattr(module, name, fn)
+
+
+def f64_error(s: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Each row's max |s - ref| over the row's largest |ref| (at least 1)."""
+    scale = torch.clamp(ref.abs().amax(1, keepdim=True), min=1.0)
+    return ((s.double() - ref).abs() / scale).amax(1)
+
+
+def eval_inputs_agree(got, want, roles: dict, d: int, n_data: int,
+                      worst: dict, refs=None) -> None:
+    """A rank's recorded inputs (data index ``d``) against the single
+    process's rows of the same batches, each argument as ``roles`` says
+    (``refs``: the float64 scores of each batch, for "f", whose bound is
+    ``worst["f64 bound"]``). ``worst`` keeps the largest |diff| / row max
+    seen: (name, i) against the single process, "f64" against float64."""
+
+    def keep(key, value):
+        worst[key] = max(worst.get(key, 0.0), value)
+
+    for name, role in roles.items():
+        assert len(got[name]) == len(want[name]), name
+        for k, (g, w) in enumerate(zip(got[name], want[name])):
+            b = w[0].shape[0] // n_data
+            rows = slice(d * b, (d + 1) * b)
+            for i, (a, c, r) in enumerate(zip(g, w, role)):
+                c = c[rows]
+                assert a.shape == c.shape, (name, i, a.shape, c.shape)
+                if r == "=":
+                    assert torch.equal(a, c), (name, i)
+                    continue
+                scale = c.abs().amax(1, keepdim=True)
+                err = (a - c).abs()
+                ratio = float((err / scale.clamp_min(1e-30)).max())
+                keep((name, i), ratio)
+                if r == "~":
+                    assert bool((err <= EVAL_TOL * scale).all()), \
+                        (name, i, ratio)
+                elif r == "f":
+                    rel = float(f64_error(a, refs[k][rows]).max())
+                    assert rel <= worst["f64 bound"], (name, i, rel, worst)
+                    keep("f64", rel)
+
+
+def metrics_from_inputs(inputs, fn, names, combine) -> dict:
+    """The metrics that recorded ranking inputs (one list per data rank)
+    rank to, through the ranking function ``fn`` on the host."""
+    partials = []
+    for rank_inputs in inputs:
+        for args in rank_inputs:
+            part = fn(*args)
+            partials.append({k: float(part.get(k, 0.0)) for k in names})
+    return combine(partials)
+
+
+def mesh_eval_agrees(single, outs, n_data: int, n_edge: int, roles, fn,
+                     names, combine, keys, refs=None) -> dict:
+    """The meshed evaluations (``outs``) against the single process's
+    recorded one (``single``: (metrics, inputs)): each rank's inputs
+    against the single's rows (eval_inputs_agree), and every edge column's
+    metrics, and the single's, equal to what their inputs rank to through
+    the ranking function ``fn`` (rtol 1e-5). Returns the worst ratios."""
+    m1, want = single
+    rank = fn.__name__
+    metrics_agree(metrics_from_inputs([want[rank]], fn, names, combine), m1,
+                  keys)
+    worst = {}
+    for name, role in roles.items():
+        if "f" in role:
+            i = role.index("f")
+            worst["f64 single"] = max(float(f64_error(w[i], ref).max())
+                                      for w, ref in zip(want[name], refs))
+            worst["f64 bound"] = max(EVAL_TOL, 2.0 * worst["f64 single"])
+    for r, o in enumerate(outs):
+        eval_inputs_agree(o["eval_inputs"], want, roles, r // n_edge, n_data,
+                          worst, refs)
+    for e in range(n_edge):
+        column = [outs[d * n_edge + e] for d in range(n_data)]
+        ranked = metrics_from_inputs([o["eval_inputs"][rank] for o in column],
+                                     fn, names, combine)
+        for o in column:
+            metrics_agree(o["metrics"], ranked, keys)
+    return worst
+
+
+def phase_mesh_static(data_dir: str, n_data: int, n_edge: int, tag: str,
+                      card):
+    """9a (1x2, edge-parallel) / 9b (2x1, data-parallel): two ranks on
+    cuda:0 over gloo, held against the single-process trainer on the card
+    with the same weights: one step's loss (rtol 1e-5) and gradients
+    (phase 5's tolerances), evaluate('valid') query by query
+    (mesh_eval_agrees). Returns the kernel's rows and launches per rank
+    per step."""
+    from redgnn_tpu_torch.ops.ranking import rank_metric_sums
+    from redgnn_tpu_torch.parallel.launch import run_mesh
+    from redgnn_tpu_torch.train import loop as train_loop
+    from redgnn_tpu_torch.train.loop import METRIC_SUMS
+    from redgnn_tpu_torch.utils.metrics import combine_metric_sums
+
+    single, _ = mesh_trainer(data_dir, mesh_config())
+    caps1 = single._recalibrate_exact(
+        single.train_caps, single.kg.graph_np, single.kg.train_data,
+        single.cfg.n_batch)
+    loss1, g1, _, _ = single._loss_and_grads(*step_tensors(single, 0), caps1)
+    t0 = time.perf_counter()
+    outs = run_mesh(mesh_static_rank, n_data, n_edge, ["cuda:0"] * 2,
+                    backend="gloo", args=(data_dir, tag, card), timeout=600,
+                    collective_timeout=180)
+    wall = time.perf_counter() - t0
+    names = list(single.params)
+    for r, o in enumerate(outs):
+        assert abs(o["loss"] - float(loss1)) <= 1e-5 * abs(float(loss1)), \
+            (o["loss"], float(loss1))
+        worst = grads_agree(names, single._slices, o["g"], g1.cpu(),
+                            GRAD_RTOL, GRAD_ATOL_REL)
+        log(f"{tag} rank {r}: one step vs the single-process step on the "
+            f"card, same weights: loss {o['loss']:.6f} vs {float(loss1):.6f}"
+            f" (rtol 1e-5); {len(names)} parameter gradients within rtol "
+            f"{GRAD_RTOL} + {GRAD_ATOL_REL} * max|grad|, worst max|diff| / "
+            f"max|grad| {worst:.3g}; {o['launches']} kernel launches in the "
+            f"step ({n_edge}-way edge slices of {single.cfg.n_layer} hops)")
+    for k in names:  # the replicated parameters stay bit-equal
+        assert torch.equal(outs[0]["params"][k], outs[1]["params"][k]), k
+    single.load_state({"params": outs[0]["params"],
+                       "opt_state": single.state()["opt_state"]})
+    single.evaluate("valid")  # calibrates the split's caps
+    m1, want = recorded_eval(lambda: single.evaluate("valid"), train_loop,
+                             STATIC_EVAL)
+    worst = mesh_eval_agrees((m1, want), outs, n_data, n_edge, STATIC_EVAL,
+                             rank_metric_sums, METRIC_SUMS,
+                             combine_metric_sums,
+                             ("mrr", "h1", "h3", "h10", "n"))
+    for o in outs:
+        metrics_agree(o["metrics"], m1, ("n",))
+    nq = len(single.kg.eval_spec("valid").queries)
+    log(f"{tag} mesh {n_data}x{n_edge}: evaluate('valid') after 2 x "
+        f"{MESH_STEPS} steps on the same weights as the single process: "
+        f"{len(want['rank_metric_sums'])} batches, answers and filters "
+        f"equal, scores within {EVAL_TOL} x the row's largest |score| "
+        f"(worst {worst['rank_metric_sums', 0]:.3g}), "
+        f"metrics those scores rank to (rtol 1e-5): MRR by rank "
+        f"{[round(o['metrics']['mrr'], 6) for o in outs]}, the single "
+        f"process's {m1['mrr']:.6f}; {outs[0]['eval_s']:.3f} s, "
+        f"{nq / outs[0]['eval_s']:.1f} queries/s; ms per step by rank "
+        f"{[round(o['ms_per_step'], 3) for o in outs]}; peak memory by rank "
+        f"{[o['peak'] for o in outs]} B; the whole two-process run "
+        f"{wall:.1f} s ({SHARED_CARD}; {card})")
+    return {"mesh": f"{n_data}x{n_edge}",
+            "launches_per_rank_step": [o["launches"] for o in outs],
+            "rows": [r for o in outs for r in o["rows"]]}
+
+
+def mesh_temporal_rank(mesh, data_dir: str, name: str, card):
+    """One rank of 9b's temporal check: one step's loss and summed
+    gradient, and evaluate('valid'), under a 2x1 mesh."""
+    from redgnn_tpu_torch.cli.train import load_temporal_kg
+    from redgnn_tpu_torch.train import temporal_loop
+    from redgnn_tpu_torch.train.temporal_loop import TemporalTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = temporal_mesh_config(name)
+    tr = TemporalTrainer(load_temporal_kg(data_dir, cfg, mesh.device), cfg,
+                         mesh=mesh)
+    loss, g, overflow = temporal_probe(tr)
+    assert not bool(overflow)
+    t0 = time.perf_counter()
+    tr.evaluate("valid")
+    eval_s = time.perf_counter() - t0
+    m, inputs = recorded_eval(lambda: tr.evaluate("valid"), temporal_loop,
+                              TEMPORAL_EVAL)
+    return {"loss": float(loss), "g": g.cpu(), "metrics": m,
+            "eval_inputs": inputs, "eval_s": eval_s,
+            "cap0": tr.caps["train"].node_caps[0]}
+
+
+def temporal_mesh_config(name: str):
+    """The registry entry with the strict backward (a sharded step has
+    it), the first T_EVAL_BATCHES batches of valid."""
+    from redgnn_tpu_torch.utils.config import dataset_config
+
+    return dataset_config("temporal", name, scan_src_backward=False,
+                          max_eval_batches=T_EVAL_BATCHES[name])
+
+
+def temporal_probe(tr):
+    """(loss, flat gradient, overflow) of the first training batch."""
+    b = tr.cfg.batch_size
+    data = tr.kg.splits["train"][:b]
+    caps = tr._get_caps("train", data, tr._cap_b(b))
+    batch = quad_tensors(data, tr.device)
+    excl = None
+    if tr.cfg.mode == "interpolation":
+        excl = torch.as_tensor(tr.kg.exclusion_slots(np.arange(b)).astype(
+            np.int32), device=tr.device)
+    return tr._loss_and_grads(*batch[:4], batch[4], excl, caps)
+
+
+def phase_mesh_temporal(data_dir: str, name: str, card):
+    """9b, temporal: TemporalTrainer at 2x1 (two ranks on cuda:0, gloo) on
+    the forecasting-sized dir against the single-process trainer: one
+    step's loss (rtol 1e-5) and gradients (phase 7's temporal
+    tolerances), evaluate('valid') query by query (mesh_eval_agrees)."""
+    from redgnn_tpu_torch.cli.train import load_temporal_kg
+    from redgnn_tpu_torch.ops.ranking import frontier_rank_metric_sums
+    from redgnn_tpu_torch.parallel.launch import run_mesh
+    from redgnn_tpu_torch.train import temporal_loop
+    from redgnn_tpu_torch.train.temporal_loop import EX_SUMS, TemporalTrainer
+
+    cfg = temporal_mesh_config(name)
+    single = TemporalTrainer(load_temporal_kg(data_dir, cfg, "cuda"), cfg)
+    loss1, g1, _ = temporal_probe(single)
+    single.evaluate("valid")  # calibrates the split's caps
+    m1, want = recorded_eval(lambda: single.evaluate("valid"), temporal_loop,
+                             TEMPORAL_EVAL)
+    outs = run_mesh(mesh_temporal_rank, 2, 1, ["cuda:0"] * 2,
+                    backend="gloo", args=(data_dir, name, card), timeout=600,
+                    collective_timeout=180)
+    b = cfg.eval_batch_size
+    data = single.kg.splits["valid"][:cfg.max_eval_batches * b]
+    assert len(data) % b == 0, len(data)
+    refs = [reference_scores(single.model, single.kg, data[i:i + b],
+                             single.caps["eval_valid"], device="cuda")
+            for i in range(0, len(data), b)]
+    worst_e = mesh_eval_agrees(
+        (m1, want), outs, 2, 1, TEMPORAL_EVAL, frontier_rank_metric_sums,
+        EX_SUMS, TemporalTrainer._combine,
+        ("raw_mrr", "fil_mrr", "fil_t_mrr", "h1", "h10", "found_rate", "n"),
+        refs)
+    names = list(single.params)
+    for r, o in enumerate(outs):
+        assert o["cap0"] == cfg.batch_size // 2
+        assert abs(o["loss"] - float(loss1)) <= 1e-5 * abs(float(loss1)), \
+            (o["loss"], float(loss1))
+        worst = grads_agree(names, single._slices, o["g"], g1.cpu(),
+                            TEMPORAL_GRAD_RTOL, TEMPORAL_GRAD_ATOL_REL)
+        metrics_agree(o["metrics"], m1, ("found_rate", "n"))
+        log(f"[9b] {name} rank {r} of a 2x1 mesh: one step (batch "
+            f"{cfg.batch_size}, {cfg.batch_size // 2} queries a rank) vs "
+            f"the single process: loss {o['loss']:.6f} vs {float(loss1):.6f}"
+            f" (rtol 1e-5), {len(names)} gradients within rtol "
+            f"{TEMPORAL_GRAD_RTOL} + {TEMPORAL_GRAD_ATOL_REL} * max|grad| "
+            f"(worst {worst:.3g}); evaluate('valid') of {int(m1['n'])} "
+            f"queries in {len(want['nll_softmax_loss'])} batches: targets, "
+            f"visited sets and filters equal; scores against a float64 run "
+            f"on the card within {worst_e['f64']:.3g} of the row's largest "
+            f"|score| (bound {EVAL_TOL} or twice the single process's "
+            f"{worst_e['f64 single']:.3g}), "
+            f"{worst_e['nll_softmax_loss', 0]:.3g} off the single "
+            f"process's (the frontier softmax "
+            f"{worst_e['frontier_rank_metric_sums', 0]:.3g} of the row's "
+            f"largest, not held); metrics those rank to (rtol 1e-5): fil "
+            f"MRR {o['metrics']['fil_mrr']:.6f} (raw "
+            f"{o['metrics']['raw_mrr']:.6f}), the single process's "
+            f"{m1['fil_mrr']:.6f} (raw {m1['raw_mrr']:.6f}); found and n "
+            f"equal; {o['eval_s']:.3f} s ({SHARED_CARD}; {card})")
+
+
+def phase_mesh_nccl(data_dir: str, card):
+    """9c: a 1x1 mesh through NCCL. One NCCL all-reduce, then one train
+    step of StaticTrainer(mesh=...) bit-equal to a mesh=None trainer with
+    the same flags (plain gathers, strict backward): parameters, moments
+    and loss."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from redgnn_tpu_torch.models.redgnn import RedGNN
+    from redgnn_tpu_torch.parallel.mesh import destroy, make_mesh
+
+    mesh = make_mesh(1, 1, devices=["cuda:0"], backend="nccl")
+    try:
+        x = torch.arange(4, dtype=torch.float32, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        assert dist.get_backend() == "nccl" and torch.equal(
+            x, torch.arange(4, dtype=torch.float32, device="cuda"))
+        cfg = mesh_config(dropout=0.29)
+        meshed, caps = mesh_trainer(data_dir, cfg, mesh)
+        plain, caps1 = mesh_trainer(data_dir, cfg)
+        assert caps == caps1
+        plain.model = RedGNN(
+            dataclasses.replace(plain.model_cfg, mxu_gather_backward=False,
+                                scan_src_backward=False), device="cuda",
+            generator=torch.Generator().manual_seed(cfg.seed))
+        plain._init_flat()
+        plain.opt_state = plain.tx.init(plain._flat)
+        assert torch.equal(plain._flat, meshed._flat)
+        losses = [tr._train_step(*step_tensors(tr, 0), caps)[0]
+                  for tr in (meshed, plain)]
+        torch.cuda.synchronize()
+        assert torch.equal(losses[0], losses[1]), losses
+        assert torch.equal(meshed._flat, plain._flat)
+        for k in ("mu", "nu", "count"):
+            assert torch.equal(meshed.opt_state[k], plain.opt_state[k]), k
+        log(f"[9c] NCCL at world size 1 ({dist.get_backend()}): an "
+            f"all-reduce, then one step of StaticTrainer(mesh=1x1) with "
+            f"dropout {cfg.dropout} bit-equal to mesh=None with the same "
+            f"flags (plain gathers, strict backward): loss "
+            f"{float(losses[0]):.6f}, {meshed._flat.numel()} parameters and "
+            f"both Adam moments equal bit for bit ({card})")
+    finally:
+        destroy()
+
+
+def phase_mesh_cli(card):
+    """9d: the CLI on the card. One epoch of --mesh 1x1 with
+    --results_dir, --sqlite and --eval_splits on a small synthetic KG
+    writes its reports; --mesh 2x1 on a one-GPU host exits non-zero with
+    its reason."""
+    import sqlite3
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "kg")
+        res = os.path.join(tmp, "res")
+        os.makedirs(data)
+        write_umls_sized_kg(data)
+        base = [sys.executable, "-m", "redgnn_tpu_torch.cli.train", "--task",
+                "transductive", "--data_path", data, "--epochs", "1",
+                "--results_dir", res, "--set", "n_batch=100",
+                "n_tbatch=100", "n_layer=3"]
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            base[:-4] + ["--mesh", "1x1", "--sqlite",
+                         os.path.join(res, "x.db"), "--eval_splits",
+                         "valid,test", "--ckpt_dir", os.path.join(tmp, "ck"),
+                         "--set"] + base[-3:],
+            capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        assert run.returncode == 0, run.stderr[-3000:]
+        lines = run.stdout.strip().splitlines()
+        assert lines[0].startswith("mesh: 1 data x 1 edge"), lines[0]
+        assert any(ln.startswith("BEST ") for ln in lines)
+        assert lines[-1].startswith("EVAL_SPLITS "), lines[-1]
+        splits = json.loads(lines[-1][len("EVAL_SPLITS "):])
+        assert set(splits) == {"valid", "test"}
+        for kind in ("perf.txt", "metrics.jsonl", "mem.txt"):
+            path = os.path.join(res, f"kg_{kind}")
+            assert os.path.getsize(path) > 0, path
+        mem = open(os.path.join(res, "kg_mem.txt")).read().strip()
+        db = sqlite3.connect(os.path.join(res, "x.db"))
+        n_runs = db.execute("SELECT COUNT(*) FROM runs").fetchone()[0]
+        n_rows = db.execute("SELECT COUNT(*) FROM metrics").fetchone()[0]
+        db.close()
+        assert n_runs == 1 and n_rows >= 1, (n_runs, n_rows)
+        log(f"[9d] CLI --mesh 1x1 (NCCL) --results_dir --sqlite "
+            f"--eval_splits valid,test: one epoch in {seconds:.1f} s "
+            f"(process included); perf, metrics JSONL and memory report "
+            f"written, sqlite {n_runs} run / {n_rows} metric rows; valid MRR "
+            f"{splits['valid']['mrr']:.4f}, test MRR "
+            f"{splits['test']['mrr']:.4f} on the best checkpoint; {mem} "
+            f"({card})")
+        refused = subprocess.run(base[:-4] + ["--mesh", "2x1", "--set"]
+                                 + base[-3:], capture_output=True, text=True,
+                                 timeout=300)
+        n_gpu = torch.cuda.device_count()
+        if n_gpu < 2:
+            assert refused.returncode != 0
+            reason = refused.stderr.strip().splitlines()[-1]
+            assert "needs 2 GPUs" in reason, reason
+            log(f"[9d] --mesh 2x1 on a host with {n_gpu} GPU exits "
+                f"{refused.returncode}: {reason}")
+
+
+def phase_mesh(family_dir: str, card):
+    """Phase 9a-9d; returns the kernel's rows of 9a / 9b."""
+    out = []
+    for n_data, n_edge, tag in ((1, 2, "[9a]"), (2, 1, "[9b]")):
+        out.append(phase_mesh_static(family_dir, n_data, n_edge, tag, card))
+    with tempfile.TemporaryDirectory() as tmp:
+        write_icews14_sized(tmp, True)
+        phase_mesh_temporal(tmp, "ICEWS14_forecasting", card)
+    phase_mesh_nccl(family_dir, card)
+    phase_mesh_cli(card)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script "
@@ -2160,6 +2716,10 @@ def main() -> int:
                 took("phase 8a-8b")
                 phase_simple(tmp, card)
                 took("phase 8c")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_synthetic_kg(tmp)
+        kernel["mesh"] = phase_mesh(tmp, card)
+    took("phase 9")
     if FAILED:
         print("chip_smoke: failed checks:\n" + "\n".join(FAILED),
               file=sys.stderr)
@@ -2169,7 +2729,8 @@ def main() -> int:
         + [r["max_abs_err"] for r in kernel["train_hops"]]
         + [r["max_abs_err"] for part in [kernel["dense"]]
            + list(kernel["temporal"].values())
-           for k in ("serve", "train") for r in part[k]])
+           for k in ("serve", "train") for r in part[k]]
+        + [r["max_abs_err"] for part in kernel["mesh"] for r in part["rows"]])
     log(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

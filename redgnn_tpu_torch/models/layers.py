@@ -11,6 +11,12 @@ one hop either over a sparse frontier (`RelAttnLayer.forward`) or over
 the whole tail-sorted edge table, batch-shared (`RelAttnLayer.dense`);
 both use one parameter set.
 
+Under a mesh with an edge axis (``edge_shards > 1``, the JAX package's
+``edge_axis``) a sparse hop slices the padded edge list into
+``edge_shards`` contiguous chunks, takes this rank's chunk, and sums the
+partial aggregates over the mesh's edge group with a differentiable
+all-reduce (`parallel/mesh.py:all_reduce_sum`).
+
 Parameters are created on the CPU with the JAX package's init bounds,
 drawn from the ``torch.Generator`` passed in (torch's default one if
 None); the owning model moves them to its device.
@@ -27,6 +33,7 @@ from torch import nn
 from redgnn_tpu_torch.ops.frontier import Frontier
 from redgnn_tpu_torch.ops.gather import take_rows
 from redgnn_tpu_torch.ops.segment import segment_sum
+from redgnn_tpu_torch.parallel.mesh import all_reduce_sum
 
 ACTIVATIONS: Dict[str, Callable] = {
     "relu": torch.relu,
@@ -58,10 +65,25 @@ class RelAttnLayer(nn.Module):
 
     def __init__(self, hidden_dim: int, attn_dim: int, n_rel: int,
                  act: str = "relu", segment_impl: str = "xla",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 mxu_gather_backward: bool = True,
+                 edge_axis: str | None = None, edge_shards: int = 1,
+                 mesh=None):
+        """``mxu_gather_backward`` sends the relation-table lookups through
+        `take_rows` (one-hot matmul backward); off, they are plain
+        gathers. ``edge_axis`` names the ``mesh`` axis whose
+        ``edge_shards`` ranks split each sparse hop's edges."""
         super().__init__()
         self.act = act
         self.segment_impl = segment_impl
+        self.mxu_gather_backward = mxu_gather_backward
+        self.edge_axis = edge_axis if edge_shards > 1 else None
+        self.edge_shards = edge_shards
+        if self.edge_axis is not None and (
+                mesh is None or mesh.size(edge_axis) != edge_shards):
+            raise ValueError(f"edge_shards={edge_shards} needs a mesh whose "
+                             f"{edge_axis!r} axis has that many ranks")
+        self.mesh = mesh
         # table holds 2*n_rel+1 rows: relations, inverses, self-loop
         self.rela_embed = nn.Parameter(torch.empty(2 * n_rel + 1, hidden_dim))
         with torch.no_grad():
@@ -87,7 +109,20 @@ class RelAttnLayer(nn.Module):
             frontier.src, frontier.dst, frontier.rel, frontier.batch,
             frontier.edge_valid,
         )
-        if frontier.src_values is not None:
+        sharded = self.edge_axis is not None
+        if sharded:
+            # this rank's contiguous chunk of the replicated edge list; a
+            # chunk of a dst-sorted list is still sorted, and its valid
+            # edges are still a prefix of it
+            e = src.shape[0]
+            if e % self.edge_shards:
+                raise ValueError(f"edge cap {e} is not a multiple of "
+                                 f"edge_shards={self.edge_shards}")
+            chunk = e // self.edge_shards
+            start = self.mesh.index(self.edge_axis) * chunk
+            src, dst, rel, batch, valid = (
+                x[start:start + chunk] for x in (src, dst, rel, batch, valid))
+        if frontier.src_values is not None and not sharded:
             # h_src was fetched inside the frontier's metadata gather,
             # whose backward is a scatter-free range difference of the
             # gradient's prefix sum (ops/gather.gather_rows_packed)
@@ -104,8 +139,13 @@ class RelAttnLayer(nn.Module):
                 % hidden_prev.shape[0]
             src = torch.where(valid, src.long(), spread)
             hs = hidden_prev[src]                          # (E, D)
-        hr = take_rows(self.rela_embed, rel)               # (E, D)
-        h_qr = take_rows(take_rows(self.rela_embed, q_rel), batch)
+        # under the edge axis the JAX package takes plain gathers too
+        if self.mxu_gather_backward and not sharded:
+            hr = take_rows(self.rela_embed, rel)           # (E, D)
+            h_qr = take_rows(take_rows(self.rela_embed, q_rel), batch)
+        else:
+            hr = self.rela_embed[rel.long()]
+            h_qr = self.rela_embed[q_rel.long()][batch.long()]
 
         logits = self.w_alpha(torch.relu(
             self.Ws_attn(hs) + self.Wr_attn(hr) + self.Wqr_attn(h_qr)))
@@ -126,6 +166,8 @@ class RelAttnLayer(nn.Module):
             indices_are_sorted=edges_sorted,
             impl=self.segment_impl,
         )
+        if sharded:
+            agg = all_reduce_sum(agg, self.mesh, self.edge_axis)
         return ACTIVATIONS[self.act](self.W_h(agg))
 
     def dense(self, hidden_dense: torch.Tensor, visited: torch.Tensor,
@@ -160,7 +202,8 @@ class RelAttnLayer(nn.Module):
         hs = g[..., :d]
         live = g[..., d] > 0.5                        # (E, b)
 
-        hr = take_rows(self.rela_embed, trel)         # (E, d)
+        hr = (take_rows(self.rela_embed, trel) if self.mxu_gather_backward
+              else self.rela_embed[trel.long()])  # (E, d)
         h_qr = self.rela_embed[q_rel.long()]          # (b, d)
 
         # the attention terms factor: the hr / h_qr projections are shared

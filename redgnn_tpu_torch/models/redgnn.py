@@ -14,7 +14,10 @@ No parameter depends on the entity count: it is read from the graph of
 each call, so one model scores the training graph and an inductive test
 graph with another vocabulary.
 
-Not ported yet: edge sharding (``edge_axis``), bfloat16 compute.
+Edge sharding (``edge_axis`` / ``edge_shards``, the JAX package's
+fields) splits each sparse hop's edges over a mesh's edge group
+(`models/layers.py`); a model built so takes the ``mesh`` and runs no
+dense hop, as in the JAX package. Not ported yet: bfloat16 compute.
 """
 
 from __future__ import annotations
@@ -65,6 +68,14 @@ class ModelConfig:
     dense_hops: bool = True
     dense_switch: float = 0.25
     dense_agg: str = "sorted_scatter"  # or 'cumsum' (models/layers.py)
+    # edge-parallel propagation over the mesh axis edge_axis, whose
+    # edge_shards ranks each take a slice of every sparse hop's edges
+    edge_axis: str | None = None
+    edge_shards: int = 1
+    # the relation-table lookups' backward as a one-hot matmul
+    # (ops/gather.take_rows); a sharded step clears it, as the JAX
+    # package's shard_map does (parallel/shard.py)
+    mxu_gather_backward: bool = True
 
 
 def _resolve_dedup(dedup_impl: str, key_space: int, edge_cap: int,
@@ -97,7 +108,7 @@ def hop_plan(cfg: ModelConfig, graph: DeviceGraph, caps: FrontierCaps,
     on (the frontier has saturated), if the graph has its tail-sorted
     view."""
     dense_from = cfg.n_layer
-    if cfg.dense_hops and graph.has_dense:
+    if cfg.dense_hops and graph.has_dense and cfg.edge_axis is None:
         for i in range(cfg.n_layer):
             if caps.edge_caps[i] >= cfg.dense_switch * b * graph.n_edges:
                 dense_from = i
@@ -125,10 +136,12 @@ class RedGNN(nn.Module):
     Parameters are drawn on the CPU from ``generator`` (a fresh one seeded
     with 0 by default) and then moved to ``device``, so one seed gives the
     same weights on every device. State-dict keys follow the JAX
-    package's parameter names (``layer_{i}``, ``gate``, ``W_final``)."""
+    package's parameter names (``layer_{i}``, ``gate``, ``W_final``).
+    ``mesh`` (`parallel/mesh.py`) is needed when ``cfg.edge_axis`` is
+    set."""
 
     def __init__(self, cfg: ModelConfig, device="cuda",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mesh=None):
         super().__init__()
         dev = resolve_device(device)
         if generator is None:
@@ -137,7 +150,10 @@ class RedGNN(nn.Module):
         for i in range(cfg.n_layer):
             self.add_module(f"layer_{i}", RelAttnLayer(
                 cfg.hidden_dim, cfg.attn_dim, cfg.n_rel, act=cfg.act,
-                segment_impl=cfg.segment_impl, generator=generator))
+                segment_impl=cfg.segment_impl, generator=generator,
+                mxu_gather_backward=cfg.mxu_gather_backward,
+                edge_axis=cfg.edge_axis, edge_shards=cfg.edge_shards,
+                mesh=mesh))
         self.gate = GRUGate(cfg.hidden_dim, generator=generator)
         self.W_final = nn.Linear(cfg.hidden_dim, 1, bias=False)
         _uniform_init_(self.W_final.weight, cfg.hidden_dim, generator)

@@ -40,8 +40,9 @@ hop. The sums are the same function either way; with
 ``segment_impl='xla'`` (the default) the two packages agree in route as
 well.
 
-Not ported yet: ``collect_alpha`` (the attention statistics of the
-utilities).
+``collect_alpha`` exposes each sparse hop's per-edge attention in
+``aux`` (``alpha``, ``alpha_rel``, ``alpha_qrel``, ``alpha_valid``: one
+tensor per hop), for the attention statistics of `utils/viz.py`.
 """
 
 from __future__ import annotations
@@ -148,7 +149,7 @@ class TemporalModelConfig:
     # ablations (`Temporal/interpolation/model_cuda_aba.py:14,189,353`)
     use_time: bool = True               # False => T_RED_GNN_wo_tau
     use_attention: bool = True          # False => T_RED_GNN_wo_Attn
-    collect_alpha: bool = False         # not ported yet
+    collect_alpha: bool = False  # per-edge attention in aux (sparse hops)
     direction_transform: str = "linear"  # "bias" => T_RED_GNN_W
     time_embedding: str = "periodic"     # "absolute" => per-timestamp table
     n_time: Optional[int] = None         # rows for absolute time table
@@ -186,9 +187,6 @@ class TRedGNN(nn.Module):
     def __init__(self, cfg: TemporalModelConfig, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.collect_alpha:
-            raise NotImplementedError(
-                "collect_alpha is not ported yet (attention statistics)")
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -390,6 +388,12 @@ class TRedGNN(nn.Module):
                 hidden = checkpoint(hop, *args, use_reentrant=False)
             else:
                 hidden = hop(*args)
+            if cfg.collect_alpha:
+                hidden, alpha_i = hidden
+                aux.setdefault("alpha", []).append(alpha_i)
+                aux.setdefault("alpha_rel", []).append(fr.rel)
+                aux.setdefault("alpha_qrel", []).append(rels[fr.batch.long()])
+                aux.setdefault("alpha_valid", []).append(edge_valid)
             node_keys = fr.node_keys
             aux["edge_overflow"].append(fr.edge_overflow)
             aux["node_overflow"].append(fr.node_overflow)
@@ -475,6 +479,7 @@ class TRedGNN(nn.Module):
             alpha = torch.sigmoid(torch.relu(pre @ a1_k) @ a2_k)
             message = transformed * alpha
         else:
+            alpha = torch.ones((hs.shape[0], 1), device=hs.device)
             message = transformed
         message = torch.where(edge_valid[:, None], message, 0.0)
         # padding edges go past the end: the sum drops them instead of one
@@ -486,7 +491,10 @@ class TRedGNN(nn.Module):
                           impl=cfg.segment_impl)
         if drop_keep is not None:
             agg = torch.where(drop_keep, agg / (1.0 - cfg.dropout), 0.0)
-        return TEMPORAL_ACTS[cfg.act](agg)
+        out = TEMPORAL_ACTS[cfg.act](agg)
+        if cfg.collect_alpha:
+            return out, alpha[:, 0]
+        return out
 
     # -- dense hops --------------------------------------------------------
     def _to_dense(self, node_keys, hidden, b):

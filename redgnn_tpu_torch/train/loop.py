@@ -17,6 +17,12 @@ rejected with ``torch.where`` on a device flag rather than by a branch on
 the host, and why the optimizer is a short functional Adam over one flat
 vector that holds every parameter (the model's parameters are views of
 it): a step costs a dozen optimizer launches, not a dozen per tensor.
+
+Under a mesh (`parallel/mesh.py`) every rank runs this loop on the same
+global batches: the step takes its data shard through
+`parallel/shard.py:dp_loss`, one all-reduce sums gradients, loss and
+overflow flag over the world, and evaluation sums the metric sums the
+same way, so every rank branches alike.
 """
 
 from __future__ import annotations
@@ -36,6 +42,14 @@ from redgnn_tpu_torch.graph.calibrate import (
 )
 from redgnn_tpu_torch.models.redgnn import ModelConfig, RedGNN
 from redgnn_tpu_torch.ops.ranking import rank_metric_sums
+from redgnn_tpu_torch.parallel.shard import (
+    agree_caps,
+    data_shard,
+    dp_loss,
+    fold_seed,
+    reduce_step,
+    sharded_config,
+)
 from redgnn_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     load_host,
@@ -192,41 +206,79 @@ class FlatParams:
             self.opt_state[k].copy_(self._flatten(v) if isinstance(v, dict)
                                     else v)
 
+    def _generators(self) -> list:
+        """The trainer's device generators: ``rng``, and under a mesh the
+        rank's dropout generator."""
+        drop = getattr(self, "_drop_rng", self.rng)
+        return [self.rng] + ([drop] if drop is not self.rng else [])
+
     def _snapshot(self):
         return (self._flat.clone(),
                 {k: v.clone() for k, v in self.opt_state.items()},
-                self.rng.get_state())
+                [g.get_state() for g in self._generators()])
 
     def _rollback(self, snap) -> None:
-        flat, opt_state, rng_state = snap
+        flat, opt_state, rng_states = snap
         self._flat.copy_(flat)
         for k, v in opt_state.items():
             self.opt_state[k].copy_(v)
-        self.rng.set_state(rng_state)
+        for g, state in zip(self._generators(), rng_states):
+            g.set_state(state)
+
+    def _init_mesh(self, mesh, seed: int) -> None:
+        """``mesh`` and the rank's dropout generator: the trainer's own
+        one alone; under a mesh one per data shard, alike on the edge
+        ranks of a shard, while ``rng`` (the scrub's) stays replicated."""
+        self.mesh = mesh
+        self.n_data = mesh.size("data") if mesh is not None else 1
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the KG lies on {self.device}, the mesh rank "
+                             f"on {mesh.device}")
+        self._drop_rng = self.rng if mesh is None else torch.Generator(
+            device=self.device).manual_seed(
+                fold_seed(seed, mesh.index("data")))
+
+    def _reduce_sums(self, sums: torch.Tensor, overflow: torch.Tensor):
+        """Eval sums and overflow over the mesh (psum over data, mean over
+        the identical edge copies), in one all-reduce."""
+        if self.mesh is None:
+            return sums, overflow
+        buf = torch.cat([sums, overflow.to(sums.dtype).reshape(1)])
+        self.mesh.all_reduce(buf)
+        return buf[:-1] / self.mesh.size("edge"), buf[-1] > 0
 
 
 class StaticTrainer(FlatParams):
     """Epoch loop for static KGC (transductive and inductive) on one
-    device."""
+    device, or on each rank of a mesh."""
 
     def __init__(self, kg, cfg: TrainConfig, mesh=None):
         """``kg`` is a StaticKG or an InductiveKG (anything with
         train_data, graph/graph_np, n_ent/n_rel, eval_spec(split),
-        resplit(rng)). The trainer
-        runs on the KG's device. ``mesh`` must be None: sharding over
-        several devices is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "StaticTrainer(mesh=...) is not ported yet (multi-GPU)")
+        resplit(rng)). The trainer runs on the KG's device.
+
+        ``mesh`` (`parallel/mesh.py`, axes 'data' and 'edge'; every rank
+        builds its trainer alike) shards the train step as
+        `parallel/shard.py` does: queries over 'data', each sparse hop's
+        edges over 'edge'. Caps are per data shard (``n_batch / n_data``
+        queries), ``n_tbatch`` is rounded up to a multiple of the data
+        axis, and evaluation shards the same way with the metric sums
+        summed over the mesh."""
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype={cfg.compute_dtype!r} is not ported yet; "
                 "the port computes in float32")
         self.kg = kg
         self.cfg = cfg
-        self.mesh = None
         self.device = kg.graph.device
-        self.n_tbatch = cfg.n_tbatch
+        self.rng = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self._init_mesh(mesh, cfg.seed)
+        if cfg.n_batch % self.n_data:
+            raise ValueError(f"n_batch ({cfg.n_batch}) must divide the "
+                             f"mesh data axis ({self.n_data})")
+        # eval batches are qmask-padded anyway, so n_tbatch can simply be
+        # rounded up to a mesh multiple
+        self.n_tbatch = -(-cfg.n_tbatch // self.n_data) * self.n_data
         self.model_cfg = ModelConfig(
             n_ent=kg.n_ent, n_rel=kg.n_rel, hidden_dim=cfg.hidden_dim,
             attn_dim=cfg.attn_dim, n_layer=cfg.n_layer, dropout=cfg.dropout,
@@ -236,10 +288,13 @@ class StaticTrainer(FlatParams):
             dense_hops=cfg.dense_hops, dense_switch=cfg.dense_switch,
         )
         # parameters from a CPU generator (one seed, the same weights on
-        # every device); dropout and the scrub from a device generator
-        self.model = RedGNN(self.model_cfg, device=self.device,
-                            generator=torch.Generator().manual_seed(cfg.seed))
-        self.rng = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        # every device and rank); dropout and the scrub from device
+        # generators
+        self.model = RedGNN(
+            self.model_cfg if mesh is None
+            else sharded_config(self.model_cfg, mesh),
+            device=self.device,
+            generator=torch.Generator().manual_seed(cfg.seed), mesh=mesh)
 
         self._init_flat()
 
@@ -251,10 +306,12 @@ class StaticTrainer(FlatParams):
 
         # --- frontier capacity calibration (train graph, train batch) ---
         rowptr, _, tail = kg.graph_np
-        self.train_caps = calibrate_caps(
-            rowptr, tail, kg.n_ent, kg.train_data[:, 0], cfg.n_batch,
-            cfg.n_layer, headroom=cfg.cap_headroom,
-        )
+        # per-shard caps under a mesh: each rank expands b / n_data queries
+        self.train_caps = agree_caps(mesh, calibrate_caps(
+            rowptr, tail, kg.n_ent, kg.train_data[:, 0],
+            cfg.n_batch // self.n_data, cfg.n_layer,
+            headroom=cfg.cap_headroom,
+        ))
         # per-split eval caps, built lazily
         self.eval_caps: Dict[str, FrontierCaps] = {}
         self.t_train = 0.0
@@ -266,23 +323,48 @@ class StaticTrainer(FlatParams):
         self.host_syncs = 0
 
     # ------------------------------------------------------------------
+    def _loss_and_grads(self, subs, rels, objs, qmask, caps: FrontierCaps):
+        """One batch's (loss, flat gradient, overflow, per-hop edge
+        counts), device tensors. Under a mesh the batch is global, the rank
+        takes its data shard, and the gradient, loss and overflow flag come
+        back summed over the mesh (the same on every rank); the per-hop
+        edge counts are then zeros, as in the JAX package."""
+        mesh = self.mesh
+        with record_function("step.forward"):
+            if mesh is None:
+                scores, aux = self.model(self.kg.graph, subs, rels, qmask,
+                                         caps, train=True,
+                                         generator=self.rng)
+                loss = softmax_ce_loss(scores, objs, qmask)
+            else:
+                loss, overflow = dp_loss(self.model, mesh, self.kg.graph,
+                                         subs, rels, objs, qmask, caps,
+                                         self._drop_rng)
+        with record_function("step.backward"):
+            grads = torch.autograd.grad(loss, self._params,
+                                        allow_unused=mesh is not None)
+            with torch.no_grad():
+                loss = loss.detach()
+                g = torch.cat([(torch.zeros_like(p) if x is None else x)
+                               .reshape(-1)
+                               for x, p in zip(grads, self._params)])
+                if mesh is None:
+                    overflow = (torch.any(aux["edge_overflow"])
+                                | torch.any(aux["node_overflow"]))
+                    return loss, g, overflow, aux["num_edges"]
+                g, loss, overflow = reduce_step(mesh, g, loss, overflow)
+                return loss, g, overflow, torch.zeros(
+                    self.cfg.n_layer, dtype=torch.int32, device=self.device)
+
     def _train_step(self, subs, rels, objs, qmask, caps: FrontierCaps):
         """One step on device tensors: forward, loss, backward, the gated
         Adam update and the scrub. Returns device scalars and the per-hop
         edge counts (loss, overflow, num_edges); reads nothing back. The
         three ``record_function`` ranges let a torch.profiler trace split
         the step's device time."""
-        with record_function("step.forward"):
-            scores, aux = self.model(self.kg.graph, subs, rels, qmask, caps,
-                                     train=True, generator=self.rng)
-            loss = softmax_ce_loss(scores, objs, qmask)
-        with record_function("step.backward"):
-            grads = torch.autograd.grad(loss, self._params)
+        loss, g, overflow, num_edges = self._loss_and_grads(
+            subs, rels, objs, qmask, caps)
         with record_function("step.optimizer"), torch.no_grad():
-            loss = loss.detach()
-            g = torch.cat([x.reshape(-1) for x in grads])
-            overflow = (torch.any(aux["edge_overflow"])
-                        | torch.any(aux["node_overflow"]))
             # Reject the whole update when the loss, any gradient, any
             # update or any new moment is non-finite: parameters, moments
             # and the update count stay bit-identical. Without this one
@@ -300,7 +382,7 @@ class StaticTrainer(FlatParams):
             self._flat.copy_(nan_scrub(flat, self._owner,
                                        len(self._params), self.rng))
             loss = torch.where(finite, loss, 0.0)
-        return loss, overflow, aux["num_edges"]
+        return loss, overflow, num_edges
 
     def _run_chunk(self, batches: torch.Tensor, caps: FrontierCaps):
         """``batches`` (steps, 4, b) int32 on the device — rows subs, rels,
@@ -328,7 +410,7 @@ class StaticTrainer(FlatParams):
         nc, ec = per_query_counts(rowptr, tail, n_ent,
                                   np.asarray(data[:, 0], np.int64),
                                   self.cfg.n_layer)
-        return caps.union(caps_for_batches(nc, ec, b))
+        return agree_caps(self.mesh, caps.union(caps_for_batches(nc, ec, b)))
 
     def train_epoch(self, epoch: int) -> float:
         """One pass over the (doubled) training triples.
@@ -359,7 +441,7 @@ class StaticTrainer(FlatParams):
         # frontier overflow impossible for this split and order; grow-only
         # union. The chunk retry below stays as a safety net only.
         self.train_caps = self._recalibrate_exact(
-            self.train_caps, kg.graph_np, data, b)
+            self.train_caps, kg.graph_np, data, b // self.n_data)
 
         total_loss = 0.0
         c = cfg.scan_chunk
@@ -381,7 +463,8 @@ class StaticTrainer(FlatParams):
                     # exactly cover the rest of the epoch
                     self._rollback(snap)
                     self.train_caps = self._recalibrate_exact(
-                        self.train_caps, kg.graph_np, data[start * b:], b)
+                        self.train_caps, kg.graph_np, data[start * b:],
+                        b // self.n_data)
                     continue
                 retries = 0
                 total_loss += loss_sum
@@ -394,9 +477,13 @@ class StaticTrainer(FlatParams):
     def _eval_chunk(self, spec, staged: Sequence[torch.Tensor],
                     caps: FrontierCaps):
         """Metric sums (5,) and the overflow flag over a chunk of staged
-        eval batches, accumulated on the device."""
+        eval batches, accumulated on the device (under a mesh: this rank's
+        data shard of each batch, then summed over the mesh)."""
         sums = torch.zeros(len(METRIC_SUMS), device=self.device)
         overflow_any = torch.zeros((), dtype=torch.bool, device=self.device)
+        if self.mesh is not None:
+            sl = data_shard(self.mesh, staged[0].shape[1])
+            staged = [t[:, sl] for t in staged]
         for subs, rels, ans, fil, qmask in zip(*staged):
             labels = _one_hot_rows(ans, spec.n_ent) * qmask[:, None]
             filters = _one_hot_rows(fil, spec.n_ent)
@@ -405,7 +492,7 @@ class StaticTrainer(FlatParams):
             sums = sums + torch.stack([part[k] for k in METRIC_SUMS])
             overflow_any = (overflow_any | torch.any(aux["edge_overflow"])
                             | torch.any(aux["node_overflow"]))
-        return sums, overflow_any
+        return self._reduce_sums(sums, overflow_any)
 
     def evaluate(self, split: str) -> Dict[str, float]:
         """Filtered MRR / Hits@k over a whole split. Labels and filters
@@ -422,10 +509,11 @@ class StaticTrainer(FlatParams):
             rowptr, _, tail = spec.graph_np
             heads = (spec.queries[:, 0] if len(spec.queries)
                      else np.zeros(1, np.int64))
-            self.eval_caps[split] = calibrate_caps(
-                rowptr, tail, spec.n_ent, heads, b, cfg.n_layer,
-                headroom=cfg.cap_headroom,
-            )
+            # per-shard caps under a mesh (each rank expands b / n_data)
+            self.eval_caps[split] = agree_caps(self.mesh, calibrate_caps(
+                rowptr, tail, spec.n_ent, heads, b // self.n_data,
+                cfg.n_layer, headroom=cfg.cap_headroom,
+            ))
         queries, answers = spec.queries, spec.answers
         nq = len(queries)
         nb = -(-nq // b)
@@ -469,8 +557,8 @@ class StaticTrainer(FlatParams):
             if not overflow_seen:
                 return combine_metric_sums(partials)
             self.eval_caps[split] = self._recalibrate_exact(
-                self.eval_caps[split], spec.graph_np, queries, b,
-                n_ent=spec.n_ent,
+                self.eval_caps[split], spec.graph_np, queries,
+                b // self.n_data, n_ent=spec.n_ent,
             )
         raise RuntimeError("eval frontier caps failed to stabilize")
 
@@ -504,10 +592,13 @@ class StaticTrainer(FlatParams):
         return epoch
 
     def fit(self, epochs: Optional[int] = None, log=print,
-            eval_every: int = 1, ckpt_dir: Optional[str] = None,
+            eval_every: int = 1, logger=None,
+            ckpt_dir: Optional[str] = None,
             start_epoch: int = 0) -> Dict[str, Any]:
         """The whole run: train, eval valid+test, keep best-valid epoch,
-        re-split the graph — `train.py:119-131` + `base_model.py:81-82`."""
+        re-split the graph — `train.py:119-131` + `base_model.py:81-82`;
+        ``logger`` (`utils/reporting.py:ExperimentLogger`) gets each
+        evaluated epoch's perf line and metrics."""
         epochs = epochs or self.cfg.epochs
         best = {"valid_mrr": -1.0}
         if start_epoch > 0:
@@ -528,6 +619,9 @@ class StaticTrainer(FlatParams):
                     test_mrr=tm["mrr"], test_h1=tm["h1"], test_h10=tm["h10"],
                     infer_time=time.time() - t0, train_time=self.t_train,
                 )
+                if logger is not None:
+                    logger.epoch_line(epoch, vm, tm, self.t_train,
+                                      row["infer_time"])
                 if vm["mrr"] > best["valid_mrr"]:
                     best = dict(row, valid_mrr=vm["mrr"])
                     if ckpt_dir:

@@ -6,8 +6,6 @@ entities, Adam, raw ranking (`ops.ranking.raw_rank_metric_sums`). The
 parameters are views of one flat vector updated by one functional Adam
 (`train/temporal_loop.TemporalOptimizer` without clipping); the host reads
 an epoch's losses once, and an evaluation's sums once.
-
-Not ported yet: ``fit(logger=...)`` (the experiment logger).
 """
 
 from __future__ import annotations
@@ -126,7 +124,7 @@ class SimplETrainer(FlatParams):
         self.restore_host(path)
         return epoch
 
-    def fit(self, epochs=None, log=print, ckpt_dir=None,
+    def fit(self, epochs=None, log=print, logger=None, ckpt_dir=None,
             start_epoch: int = 0) -> Dict[str, Any]:
         epochs = epochs or self.epochs
         best = {"valid_mrr": -1.0}
@@ -135,6 +133,10 @@ class SimplETrainer(FlatParams):
             vm = self.evaluate("valid")
             row = {"epoch": epoch, "loss": loss,
                    **{f"valid_{k}": v for k, v in vm.items()}}
+            if logger is not None:
+                logger.log_scalars(epoch, {k: v for k, v in row.items()
+                                           if isinstance(v, (int, float))},
+                                   tag="eval")
             if vm["mrr"] > best["valid_mrr"]:
                 tm = self.evaluate("test")
                 row.update({f"test_{k}": v for k, v in tm.items()})

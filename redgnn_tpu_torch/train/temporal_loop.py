@@ -1,7 +1,6 @@
 """Train and eval loops for the temporal workloads.
 
-Port of ``redgnn_tpu/train/temporal_loop.py`` (single device). Capability
-parity:
+Port of ``redgnn_tpu/train/temporal_loop.py``. Capability parity:
   * interpolation (`Temporal/interpolation/main.py:56-253`): shuffled
     quadruple batches, per-example leave-one-out, softmax + NLL mean loss
     (`:71-75`), AdamW + ReduceLROnPlateau on the valid loss
@@ -18,8 +17,12 @@ steps); every parameter is a view of one flat vector and the optimizer is
 one functional update over it. Frontier capacities are exact for the
 batches they serve (per-query counts, `graph/calibrate.py`) and only grow.
 
-Not ported yet: ``mesh`` (multi-GPU) and ``collect_attention`` (the
-attention statistics of the utilities).
+Under a mesh (`parallel/mesh.py`, the data axis) every rank runs this
+loop on the same global batches and takes its data shard of each: the
+loss is the global mean NLL (the loss sum and the query count both
+summed over the shards), the leave-one-out exclusion stays replicated, so
+every shard drops the whole global batch's quadruples, and evaluation
+sums each shard's metric sums.
 """
 
 from __future__ import annotations
@@ -48,6 +51,12 @@ from redgnn_tpu_torch.ops.ranking import (
     frontier_rank_metric_sums,
     raw_rank_metric_sums,
 )
+from redgnn_tpu_torch.parallel.shard import (
+    agree_caps,
+    data_shard,
+    reduce_step,
+    sharded_config,
+)
 from redgnn_tpu_torch.train.loop import Adam, FlatParams, nan_scrub
 from redgnn_tpu_torch.utils.checkpoint import (
     load_host,
@@ -65,15 +74,21 @@ EX_SUMS = tuple(
     + ["count", "found_sum", "loss_sum"])
 
 
+def nll_sum(scores: torch.Tensor, targets: torch.Tensor,
+            qmask: torch.Tensor) -> torch.Tensor:
+    """sum over the live queries of -log(softmax(s)[target] + 1e-12)."""
+    logp = torch.log_softmax(scores, dim=1)
+    p = torch.exp(logp.gather(1, targets.long()[:, None])[:, 0])
+    per_row = -torch.log(p + 1e-12)
+    return torch.sum(torch.where(qmask, per_row, 0.0))
+
+
 def nll_softmax_loss(scores: torch.Tensor, targets: torch.Tensor,
                      qmask: torch.Tensor) -> torch.Tensor:
     """mean over the live queries of -log(softmax(s)[target] + 1e-12)
     (`Temporal/interpolation/main.py:71-75`)."""
-    logp = torch.log_softmax(scores, dim=1)
-    p = torch.exp(logp.gather(1, targets.long()[:, None])[:, 0])
-    per_row = -torch.log(p + 1e-12)
-    denom = torch.clamp(torch.sum(qmask), min=1)
-    return torch.sum(torch.where(qmask, per_row, 0.0)) / denom
+    return nll_sum(scores, targets, qmask) / torch.clamp(torch.sum(qmask),
+                                                         min=1)
 
 
 def stage_quads(data: np.ndarray, b: int, device) -> torch.Tensor:
@@ -226,16 +241,23 @@ class TemporalOptimizer:
 
 class TemporalTrainer(FlatParams):
     """Epoch loop for temporal KGC (interpolation and extrapolation) on
-    the KG's device."""
+    the KG's device, or on each rank of a mesh."""
 
     def __init__(self, kg: TemporalKG, cfg: TemporalTrainConfig, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TemporalTrainer(mesh=...) is not ported yet (multi-GPU)")
+        """``mesh`` (`parallel/mesh.py`; every rank builds its trainer
+        alike) runs every train and eval step data-parallel: queries shard
+        over 'data', the graph and the parameters are replicated, and the
+        loss and metric sums are summed over the mesh. Frontier caps are
+        per shard (``batch / n_data`` queries)."""
         self.kg = kg
         self.cfg = cfg
-        self.mesh = None
         self.device = kg.device
+        self.rng = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self._init_mesh(mesh, cfg.seed)
+        if cfg.batch_size % self.n_data or cfg.eval_batch_size % self.n_data:
+            raise ValueError(
+                f"batch sizes ({cfg.batch_size}/{cfg.eval_batch_size}) must "
+                f"divide the mesh data axis ({self.n_data})")
         self.model_cfg = TemporalModelConfig(
             n_ent=kg.n_ent,
             n_rel_vocab=kg.n_rel + 1,
@@ -259,9 +281,12 @@ class TemporalTrainer(FlatParams):
         # dedup under segment_impl='pallas'); so does this one
         _resolve_dedup(self.model_cfg.dedup_impl, cfg.batch_size * kg.n_ent,
                        64, cfg.segment_impl)
-        self.model = TRedGNN(self.model_cfg, device=self.device,
-                             generator=torch.Generator().manual_seed(cfg.seed))
-        self.rng = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        # under a mesh: plain gathers and the strict backward, as the JAX
+        # trainer's shard model has them (no parameter changes)
+        self.model = TRedGNN(
+            self.model_cfg if mesh is None
+            else sharded_config(self.model_cfg, mesh), device=self.device,
+            generator=torch.Generator().manual_seed(cfg.seed))
         self._init_flat()
         self.tx = TemporalOptimizer(cfg.optimizer, cfg.weight_decay,
                                     cfg.grad_clip, cfg.grad_accum_steps)
@@ -293,28 +318,59 @@ class TemporalTrainer(FlatParams):
             self.kg.model_args()
         return self.model(graph, etime, subs, rels, times, qmask, caps,
                           exclude, train, ekey, selfloop_slot, time_rowptr,
-                          dense, generator=self.rng if train else None)
+                          dense, generator=self._drop_rng if train else None)
+
+    def _cap_b(self, b: int) -> int:
+        """Frontier caps are per shard under a mesh (each rank expands its
+        own b / n_data sub-batch)."""
+        return b // self.n_data
+
+    def _loss_and_grads(self, subs, rels, objs, times, qmask, exclude,
+                        caps: FrontierCaps):
+        """One batch's (loss, flat gradient, overflow), device tensors.
+        Under a mesh the batch is global: the rank differentiates its
+        shard's loss sum over the global query count, and one all-reduce
+        sums gradient, loss and overflow flag over the mesh (the same on
+        every rank); ``exclude`` stays the global batch's."""
+        mesh = self.mesh
+        with record_function("step.forward"):
+            if mesh is None:
+                scores, aux = self._forward(subs, rels, times, qmask, caps,
+                                            exclude, train=True)
+                loss = nll_softmax_loss(scores, objs, qmask)
+            else:
+                count = torch.clamp(torch.sum(qmask), min=1)
+                sl = data_shard(mesh, subs.shape[0])
+                scores, aux = self._forward(subs[sl], rels[sl], times[sl],
+                                            qmask[sl], caps, exclude,
+                                            train=True)
+                # the edge ranks (if any) hold identical copies
+                loss = nll_sum(scores, objs[sl], qmask[sl]) / (
+                    count * mesh.size("edge"))
+        with record_function("step.backward"):
+            grads = torch.autograd.grad(loss, self._params,
+                                        allow_unused=True)
+            with torch.no_grad():
+                # an unused parameter (e.g. now_linear in extrapolation)
+                # has a zero gradient, as in JAX
+                g = torch.cat([(torch.zeros_like(p) if x is None else x)
+                               .reshape(-1)
+                               for x, p in zip(grads, self._params)])
+                overflow = (torch.any(aux["edge_overflow"])
+                            | torch.any(aux["node_overflow"]))
+                loss = loss.detach()
+                if mesh is not None:
+                    g, loss, overflow = reduce_step(mesh, g, loss, overflow)
+                return loss, g, overflow
 
     def _train_step(self, subs, rels, objs, times, qmask, exclude,
                     caps: FrontierCaps):
         """One step on device tensors: forward, loss, backward, the gated
         update and the scrub. Returns device scalars (loss, overflow,
         rejected); reads nothing back."""
-        with record_function("step.forward"):
-            scores, aux = self._forward(subs, rels, times, qmask, caps,
-                                        exclude, train=True)
-            loss = nll_softmax_loss(scores, objs, qmask)
-        with record_function("step.backward"):
-            grads = torch.autograd.grad(loss, self._params,
-                                        allow_unused=True)
+        loss, g, overflow = self._loss_and_grads(subs, rels, objs, times,
+                                                 qmask, exclude, caps)
         with record_function("step.optimizer"), torch.no_grad():
-            loss = loss.detach()
-            # an unused parameter (e.g. now_linear in extrapolation) has a
-            # zero gradient, as in JAX
-            g = torch.cat([(torch.zeros_like(p) if x is None else x)
-                           .reshape(-1) for x, p in zip(grads, self._params)])
-            overflow = (torch.any(aux["edge_overflow"])
-                        | torch.any(aux["node_overflow"]))
             # Reject the whole update when the loss, any gradient, the
             # update or any new floating state is non-finite: parameters
             # and the whole optimizer state (moments, counts, the
@@ -439,13 +495,13 @@ class TemporalTrainer(FlatParams):
         nc, ec = self._pq_for(data, base, order)
         needed = caps_for_batches(nc, ec, b)
         if cur is None:
-            self.caps[split] = needed
+            self.caps[split] = agree_caps(self.mesh, needed)
             self._persist_caps(split, b)
         elif not cur.covers(needed):
-            self.caps[split] = cur.union(needed)
+            self.caps[split] = agree_caps(self.mesh, cur.union(needed))
             self._persist_caps(split, b)
         else:
-            self.caps[split] = cur
+            self.caps[split] = agree_caps(self.mesh, cur)
         return self.caps[split]
 
     def _persist_caps(self, split: str, b: int) -> None:
@@ -465,7 +521,8 @@ class TemporalTrainer(FlatParams):
             nc, ec = query_counts(self.kg, self.cfg, data)
         else:
             nc, ec = self._pq_heads(data[:, 0])
-        self.caps[split] = self.caps[split].union(caps_for_batches(nc, ec, b))
+        self.caps[split] = agree_caps(
+            self.mesh, self.caps[split].union(caps_for_batches(nc, ec, b)))
         self._persist_caps(split, b)
 
     # ------------------------------------------------------------------
@@ -500,7 +557,8 @@ class TemporalTrainer(FlatParams):
             if cfg.max_train_batches is not None:
                 order = order[: cfg.max_train_batches * b]
             data = train[order]
-            caps = self._get_caps("train", data, b, order=order)
+            caps = self._get_caps("train", data, self._cap_b(b),
+                                  order=order)
             nb = -(-len(data) // b)
             if cfg.mode == "interpolation":
                 # graph row = train-file row for interpolation graphs; pads
@@ -531,7 +589,7 @@ class TemporalTrainer(FlatParams):
                     retries += 1
                     self._rollback(snap)
                     self._recalibrate_exact("train", data[start * b:stop * b],
-                                            b)
+                                            self._cap_b(b))
                     caps = self.caps["train"]
                     print(f"  epoch {epoch}: overflow in chunk at step "
                           f"{start} — grew caps, retrying chunk (kept "
@@ -560,6 +618,9 @@ class TemporalTrainer(FlatParams):
         n_ent = self.kg.n_ent
         sums = torch.zeros(len(names), device=self.device)
         overflow_any = torch.zeros((), dtype=torch.bool, device=self.device)
+        if self.mesh is not None:
+            sl = data_shard(self.mesh, staged[0].shape[1])
+            staged = [t[:, sl] for t in staged]
         for batch in zip(*staged):
             subs, rels, objs, times, qmask = batch[:5]
             qmask = qmask.bool()
@@ -586,7 +647,7 @@ class TemporalTrainer(FlatParams):
                                        for k in names])
             overflow_any = (overflow_any | torch.any(aux["edge_overflow"])
                             | torch.any(aux["node_overflow"]))
-        return sums, overflow_any
+        return self._reduce_sums(sums, overflow_any)
 
     def evaluate(self, split: str) -> Dict[str, float]:
         """Interpolation: raw MRR / Hits@k over the dense scores.
@@ -599,7 +660,7 @@ class TemporalTrainer(FlatParams):
         if cfg.max_eval_batches is not None:
             data = data[: cfg.max_eval_batches * cfg.eval_batch_size]
         b = cfg.eval_batch_size
-        caps = self._get_caps(f"eval_{split}", data, b)
+        caps = self._get_caps(f"eval_{split}", data, self._cap_b(b))
         with self.timer.phase("eval", "stage"):
             extra = ()
             if cfg.mode == "extrapolation":
@@ -624,7 +685,7 @@ class TemporalTrainer(FlatParams):
                 partials.append(dict(zip(names, sums)))
             if not overflow_seen:
                 return self._combine(partials)
-            self._recalibrate_exact(f"eval_{split}", data, b)
+            self._recalibrate_exact(f"eval_{split}", data, self._cap_b(b))
             caps = self.caps[f"eval_{split}"]
         raise RuntimeError("temporal eval caps failed to stabilize")
 
@@ -663,6 +724,54 @@ class TemporalTrainer(FlatParams):
         if not hasattr(self, "_sp2o"):
             self._sp2o, self._spt2o = answer_filters(self.kg.splits)
         return self._sp2o, self._spt2o
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def collect_attention(self, split: str = "valid",
+                          max_batches: int = 8) -> np.ndarray:
+        """(n_rel, n_rel, 2) [attention sum, count] keyed by (query rel,
+        edge rel) — the reference's attention_vis bookkeeping
+        (`model_cuda_new_embdding.py:117-125,169-172`), from a few forward
+        passes of a `collect_alpha` twin of the model (sparse hops only)
+        over whole batches of ``split``; under a mesh every rank computes
+        the same statistics."""
+        import dataclasses
+
+        from redgnn_tpu_torch.utils.viz import collect_attention_stats
+
+        model = TRedGNN(dataclasses.replace(
+            self.model.cfg, collect_alpha=True, dense_hops=False),
+            device=self.device)
+        model.load_state_dict(self.model.state_dict())
+        b = self.cfg.eval_batch_size
+        data = self.kg.splits[split][: max_batches * b]
+        # whole-batch caps of their own: this forward is not sharded
+        caps = self._get_caps(f"attn_{split}", data, b)
+        n_rel = self.model_cfg.n_rel_vocab
+        graph, etime, ekey, selfloop_slot, time_rowptr, dense = \
+            self.kg.model_args()
+        staged = self._stage(data, b)
+        for _ in range(3):
+            acc = np.zeros((n_rel, n_rel, 2))
+            overflow_seen = False
+            for subs, rels, _, times, qmask in zip(*staged):
+                _, aux = model(graph, etime, subs, rels, times,
+                               qmask.bool(), caps, None, False, ekey,
+                               selfloop_slot, time_rowptr, dense)
+                if bool(torch.any(aux["edge_overflow"])
+                        | torch.any(aux["node_overflow"])):
+                    overflow_seen = True
+                    break
+                for a, er, qr, va in zip(*([t.cpu().numpy() for t in aux[k]]
+                                           for k in ("alpha", "alpha_rel",
+                                                     "alpha_qrel",
+                                                     "alpha_valid"))):
+                    acc += collect_attention_stats(a, er, qr, va, n_rel)
+            if not overflow_seen:
+                return acc
+            self._recalibrate_exact(f"attn_{split}", data, b)
+            caps = self.caps[f"attn_{split}"]
+        raise RuntimeError("attention-stats caps failed to stabilize")
 
     # ------------------------------------------------------------------
     def plateau_step(self, valid_loss: float) -> None:
@@ -733,11 +842,12 @@ class TemporalTrainer(FlatParams):
         self.restore_host(path)
         return epoch
 
-    def fit(self, epochs: Optional[int] = None, log=print,
+    def fit(self, epochs: Optional[int] = None, log=print, logger=None,
             ckpt_dir: Optional[str] = None,
             start_epoch: int = 0) -> Dict[str, Any]:
         """Train, evaluate valid (plateau scheduler on its loss), evaluate
-        test and save on a new best valid hits@1."""
+        test and save on a new best valid hits@1; ``logger``
+        (`utils/reporting.py:ExperimentLogger`) gets each epoch's row."""
         epochs = epochs or self.cfg.epochs
         self.ckpt_dir = ckpt_dir
         best: Dict[str, Any] = {"valid_h1": -1.0}
@@ -753,6 +863,11 @@ class TemporalTrainer(FlatParams):
                 best = dict(row, valid_h1=vm["h1"])
                 if ckpt_dir:
                     self.save(ckpt_dir, epoch, vm["h1"])
+            if logger is not None:
+                # after the best-update so test metrics reach the JSONL
+                logger.log_scalars(epoch, {k: v for k, v in row.items()
+                                           if isinstance(v, (int, float))},
+                                   tag="eval")
             self.history.append(row)
             if ckpt_dir:
                 save_latest(ckpt_dir, self.state(), epoch + 1, vm["h1"],

@@ -19,8 +19,6 @@ step reads nothing back; the host reads the epoch's losses and overflow
 flags once per attempt, and an evaluation's sums once per attempt.
 Sampling seeds: step ``i`` of the run draws with ``rng_seed = i``,
 evaluation with 0, as in the JAX trainer.
-
-Not ported yet: ``fit(logger=...)`` (the experiment logger).
 """
 
 from __future__ import annotations
@@ -262,11 +260,12 @@ class XErteTrainer(FlatParams):
         self.restore_host(path)
         return epoch
 
-    def fit(self, epochs: Optional[int] = None, log=print,
+    def fit(self, epochs: Optional[int] = None, log=print, logger=None,
             ckpt_dir: Optional[str] = None,
             start_epoch: int = 0) -> Dict[str, Any]:
         """Train, evaluate valid, evaluate test and save on a new best
-        valid MRR; ``latest`` is written every epoch."""
+        valid MRR; ``latest`` is written every epoch, and ``logger``
+        (`utils/reporting.py:ExperimentLogger`) gets each epoch's row."""
         epochs = epochs or self.epochs
         self._ckpt_dir = ckpt_dir
         best: Dict[str, Any] = {"valid_mrr": -1.0}
@@ -282,6 +281,12 @@ class XErteTrainer(FlatParams):
                 best = dict(row, valid_mrr=vm["mrr"])
                 if ckpt_dir:
                     self.save(ckpt_dir, epoch, vm["mrr"])
+            # after the best/test update, so that a best epoch's row
+            # carries its test metrics into the JSONL
+            if logger is not None:
+                logger.log_scalars(epoch, {k: v for k, v in row.items()
+                                           if isinstance(v, (int, float))},
+                                   tag="eval")
             self.history.append(row)
             if ckpt_dir:
                 save_latest(ckpt_dir, self.state(), epoch + 1, vm["mrr"],

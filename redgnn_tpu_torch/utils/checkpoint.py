@@ -22,6 +22,7 @@ from __future__ import annotations
 import glob
 import json
 import os
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -33,6 +34,14 @@ from redgnn_tpu_torch.utils.port_params import (
 )
 
 EXT = ".pt"
+
+
+def new_checkpoint_dir(root: str, prefix: str = "checkpoints") -> str:
+    """Timestamped checkpoint directory (`utils.py:679-690`)."""
+    stamp = time.strftime("%Y_%m_%d_%H_%M_%S")
+    path = os.path.join(root, f"{prefix}_{stamp}")
+    os.makedirs(path, exist_ok=True)
+    return path
 
 
 def _write_host(path: str, host: Optional[Dict[str, Any]]) -> None:

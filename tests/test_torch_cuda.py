@@ -542,3 +542,50 @@ def test_temporal_kernel_path_on_card_matches_cpu(card, tmp_path, mode):
         scale = float(g_c[n].abs().max())
         torch.testing.assert_close(g_g[n], g_c[n], rtol=1e-4,
                                    atol=1e-5 * scale + 1e-9)
+
+
+def test_edge_parallel_step_on_card_matches_single_process(card):
+    """Two ranks on cuda:0 through gloo (NCCL refuses a GPU twice), mesh
+    1x2: each rank sums its slice of every hop's edges through the kernel
+    and the ranks all-reduce the aggregates; the summed gradient and the
+    loss equal the single-process step on the card."""
+    from redgnn_tpu_torch.parallel.launch import run_mesh
+
+    import torch_mesh_workers as W
+
+    rng = np.random.default_rng(0)
+    n_ent, n_rel, b = 40, 4, 8
+    tri = np.stack([rng.integers(0, n_ent, 300),
+                    rng.integers(0, 2 * n_rel, 300),
+                    rng.integers(0, n_ent, 300)], 1)
+    ents = np.arange(n_ent)
+    tri = np.concatenate([tri, np.stack([ents, np.full(n_ent, 2 * n_rel),
+                                         ents], 1)])
+    arrays = [a.astype(np.int32) for a in build_csr(tri, n_ent)]
+    batch = [rng.integers(0, n_ent, b).astype(np.int32),
+             rng.integers(0, 2 * n_rel, b).astype(np.int32),
+             rng.integers(0, n_ent, b).astype(np.int32), np.ones(b, bool)]
+    cfg_kw = dict(n_ent=n_ent, n_rel=n_rel, hidden_dim=16, attn_dim=5,
+                  n_layer=3, dropout=0.0, segment_impl="pallas",
+                  dense_hops=False)
+    caps = FrontierCaps((b, 512, 512, 512), (2048, 2048, 2048))
+    model = RedGNN(ModelConfig(**dict(cfg_kw, mxu_gather_backward=False)),
+                   device="cuda")
+    graph = DeviceGraph(*(torch.as_tensor(a, device="cuda") for a in arrays))
+    subs, rels, objs, qmask = (torch.as_tensor(a, device="cuda")
+                               for a in batch)
+    scores, aux = model(graph, subs, rels, qmask.bool(), caps)
+    assert not bool(aux["edge_overflow"].any() | aux["node_overflow"].any())
+    loss = softmax_ce_loss(scores, objs, qmask.bool())
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    out = run_mesh(W.grad_probe, 1, 2, ["cuda:0"] * 2, backend="gloo",
+                   args=(arrays, cfg_kw, params, batch, caps), timeout=300)
+    for o in out:
+        assert not o["overflow"]
+        assert o["loss"] == pytest.approx(loss.item(), rel=1e-5)
+        for (name, _), g in zip(model.named_parameters(), grads):
+            want = g.cpu()
+            torch.testing.assert_close(
+                o["grads"][name], want, rtol=1e-4,
+                atol=1e-5 * float(want.abs().max()), msg=name)

@@ -35,7 +35,16 @@ NEWER_MODULES = ("redgnn_tpu_torch.graph.inductive",
                  "redgnn_tpu_torch.models.xerte",
                  "redgnn_tpu_torch.models.baselines",
                  "redgnn_tpu_torch.train.xerte_loop",
-                 "redgnn_tpu_torch.train.simple_loop")
+                 "redgnn_tpu_torch.train.simple_loop",
+                 "redgnn_tpu_torch.parallel.mesh",
+                 "redgnn_tpu_torch.parallel.runtime",
+                 "redgnn_tpu_torch.parallel.shard",
+                 "redgnn_tpu_torch.parallel.launch",
+                 "redgnn_tpu_torch.utils.reporting",
+                 "redgnn_tpu_torch.utils.memory",
+                 "redgnn_tpu_torch.utils.linetrace",
+                 "redgnn_tpu_torch.utils.hpo",
+                 "redgnn_tpu_torch.utils.viz")
 
 
 def _clean_env():
@@ -57,11 +66,13 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    """No import statement of the port, chip_smoke.py or
-    time_kernel_variants.py names JAX, flax, optax, msgpack or the JAX
-    package (also catches imports inside functions)."""
+    """No import statement of the port, chip_smoke.py,
+    time_kernel_variants.py or the worker bodies of the multi-process
+    tests names JAX, flax, optax, msgpack or the JAX package (also catches
+    imports inside functions)."""
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "time_kernel_variants.py")]
+             os.path.join(ROOT, "time_kernel_variants.py"),
+             os.path.join(ROOT, "tests", "torch_mesh_workers.py")]
     pkg_dir = os.path.dirname(redgnn_tpu_torch.__file__)
     for dirpath, _, names in os.walk(pkg_dir):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]

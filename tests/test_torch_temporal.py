@@ -406,10 +406,19 @@ def test_dropout_remat_and_refusals(vocab_dir, rng):
     with pytest.raises(ValueError, match="Generator"):
         plain(kg.graph, kg.etime, subs, rels, times, qmask, caps, None, True,
               kg.ekey, kg.selfloop_slot, kg.time_rowptr, kg.dense)
-    with pytest.raises(NotImplementedError, match="collect_alpha"):
-        ttm.TRedGNN(ttm.TemporalModelConfig(
-            **dict(dataclasses.asdict(cfg), collect_alpha=True)),
-            device="cpu")
+    # collect_alpha (ported) exposes each sparse hop's attention and leaves
+    # the scores as they are
+    collect = port_model(dataclasses.replace(cfg, collect_alpha=True),
+                         params)
+    with torch.no_grad():
+        s_c, aux_c = collect(kg.graph, kg.etime, subs, rels, times, qmask,
+                             caps, None, False, kg.ekey, kg.selfloop_slot,
+                             kg.time_rowptr, kg.dense)
+    torch.testing.assert_close(s_c, e, rtol=0, atol=0)
+    n_sparse = sum(k != "dense" for k in ttm.temporal_hop_plan(
+        collect.cfg, kg.graph.n_edges, caps, subs.shape[0], True))
+    assert len(aux_c["alpha"]) == n_sparse >= 1
+    assert all(((a >= 0) & (a <= 1)).all() for a in aux_c["alpha"])
     # bitmap dedup under the kernel is refused, as in the JAX package
     bad = ttm.TRedGNN(ttm.TemporalModelConfig(**dict(
         dataclasses.asdict(cfg), segment_impl="pallas", dense_hops=False)),

@@ -503,9 +503,17 @@ def test_trainer_refusals_match_jax(vocab_dir):
     with pytest.raises(ValueError) as got:
         tloop.TemporalTrainer(kg, TemporalTrainConfig(**over))
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tloop.TemporalTrainer(kg, TemporalTrainConfig(**INTERP),
-                              mesh=object())
+    # a mesh whose data axis does not divide the batch sizes
+    from redgnn_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from redgnn_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError) as want:
+        jloop.TemporalTrainer(jkg, JConfig(**INTERP), mesh=jmake_mesh(3, 1))
+    with pytest.raises(ValueError) as got:
+        tloop.TemporalTrainer(kg, TemporalTrainConfig(**INTERP), mesh=Mesh(
+            3, 1, 0, torch.device("cpu"), "gloo",
+            {"data": None, "edge": None}))
+    assert str(got.value) == str(want.value)
     a = tloop.TemporalTrainer(kg, TemporalTrainConfig(**INTERP))
     b = tloop.TemporalTrainer(kg, TemporalTrainConfig(**INTERP))
     assert torch.equal(a._flat, b._flat)

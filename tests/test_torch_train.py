@@ -399,9 +399,24 @@ def test_training_learns(kg_dir):
 
 
 def test_trainer_refuses_mesh_and_seeds_init(kg_dir):
+    """A mesh whose data axis does not divide n_batch is refused with the
+    JAX package's message, a mesh rank on another device than the KG too;
+    bfloat16 is not ported; the seed alone sets the initial weights."""
+    from redgnn_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from redgnn_tpu_torch.parallel.mesh import Mesh
+
     kg = StaticKG.load(kg_dir, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tloop.StaticTrainer(kg, TrainConfig(**SETTINGS), mesh=object())
+    with pytest.raises(ValueError) as want:
+        jloop.StaticTrainer(JKG.load(kg_dir), JConfig(**SETTINGS),
+                            mesh=jmake_mesh(3, 1))
+    no_groups = {"data": None, "edge": None}
+    with pytest.raises(ValueError) as got:
+        tloop.StaticTrainer(kg, TrainConfig(**SETTINGS), mesh=Mesh(
+            3, 1, 0, torch.device("cpu"), "gloo", no_groups))
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="the mesh rank on meta"):
+        tloop.StaticTrainer(kg, TrainConfig(**SETTINGS), mesh=Mesh(
+            2, 1, 0, torch.device("meta"), "gloo", no_groups))
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         tloop.StaticTrainer(kg, TrainConfig(**dict(SETTINGS,
                                                    compute_dtype="bfloat16")))
@@ -548,12 +563,68 @@ def test_cli_transductive_cpu(kg_dir, tmp_path, capsys):
     ["--mesh", "2"], ["--hpo", "4"], ["--sqlite", "x.db"],
     ["--results_dir", "results"], ["--attention_stats", "a.npz"],
 ])
-def test_cli_unported_options_exit(kg_dir, extra):
-    argv = ["--data_path", kg_dir, "--device", "cpu"]
+def test_cli_unported_options_exit(kg_dir, tmp_path, rng, capfd,
+                                   monkeypatch, extra):
+    """Each option that the port's CLI refused before it was ported (the
+    test keeps its name) now runs on the CPU to its result, or exits with
+    the JAX package's own refusal (--mesh and --hpo take the redgnn model
+    only). Relative outputs land in the test's directory."""
+    from test_temporal import write_temporal_dir
+    from test_torch_temporal import write_id_dir
+
+    monkeypatch.chdir(tmp_path)
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    task = extra[1] if extra[0] == "--task" else "transductive"
+    sets = ["hidden_dim=16", "n_layer=2", "n_batch=16", "n_tbatch=16"]
+    if task == "transductive":
+        data = kg_dir
+    else:
+        sets = ["hidden_dim=8", "attn_dim=6", "n_layer=2", "batch_size=16",
+                "eval_batch_size=16", "max_train_batches=2",
+                "max_eval_batches=2"]
+        if task == "interpolation":
+            (tmp_path / "tkg").mkdir()
+            data = str(write_temporal_dir(tmp_path / "tkg", rng))
+        else:
+            data = write_id_dir(tmp_path / "toy_forecasting", rng)
+            sets.append("window=6")
+    argv = ["--data_path", data, "--device", "cpu", "--epochs", "1"]
     if extra[0] != "--task":
         argv += ["--task", "transductive"]
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli_main(argv + extra)
+    argv += extra
+    if "--model" in extra:
+        with pytest.raises(SystemExit, match="redgnn model only"):
+            cli_main(argv)
+        return
+    cli_main(argv + ["--set", *sets])
+    out = capfd.readouterr().out
+    last = out.strip().splitlines()[-1]
+    name = os.path.basename(data)
+    if "--hpo" in extra:
+        assert last.startswith("HPO_BEST ")
+        with open(os.path.join("results", f"{name}_hpo.jsonl")) as f:
+            assert len(f.read().splitlines()) == 4  # 4 trials, 1 rung
+        return
+    assert any(ln.startswith("BEST ") for ln in out.splitlines())
+    if "--eval_splits" in extra:
+        assert last.startswith("EVAL_SPLITS ")
+        assert 0.0 <= json.loads(last[12:])["valid"]["mrr"] <= 1.0
+    elif "--distributed" in extra:
+        assert "no coordinator environment found" in out
+    elif "--mesh" in extra:
+        assert "mesh: 2 data x 1 edge over 2 ranks (gloo" in out
+    elif "--sqlite" in extra:
+        import sqlite3
+
+        db = sqlite3.connect("x.db")
+        assert db.execute("SELECT COUNT(*) FROM runs").fetchone()[0] == 1
+        db.close()
+    elif "--attention_stats" in extra:
+        assert "--attention_stats supports temporal redgnn only" in out
+        assert not os.path.exists("a.npz")
+    for kind in ("perf.txt", "metrics.jsonl", "mem.txt"):
+        assert os.path.exists(os.path.join("results", f"{name}_{kind}"))
 
 
 def test_cli_overrides_and_device(kg_dir):

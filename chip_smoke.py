@@ -7,7 +7,9 @@ hop shapes.)
 
 Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit; TF32 off.
-  2. build: compile the sorted-segment-sum kernel from csrc/ with nvcc.
+  2. build: compile the sorted-segment-sum kernel from csrc/ with nvcc,
+     and the native graph walker (native/graphcore.cpp) with the host's
+     C++ compiler; its seconds are printed.
   3. kernel vs plain: the kernel against its plain PyTorch version on the
      card, at the shapes of the slice's own hops (batch 50, L=3, D=48)
      plus skewed / empty / out-of-range / kmax-overflow / scalar-path
@@ -66,7 +68,10 @@ Phases (any failure raises, and the script exits non-zero):
      against the CPU and a float64 reference, training, evaluation; the
      seeded classifier made nonnegative and scaled by 1e-6 so that the
      top-10 check compares ranks), 7b the same weights through the kernel,
-     7c the ICEWS14_forecasting entry and its kernel path.
+     7c the ICEWS14_forecasting entry and its kernel path. In 7a and 7c
+     the whole test split's exact per-query counts are walked by both
+     host walkers (the scipy bitmap walk and the native walker), timed
+     and held equal.
   8. the xERTE and SimplE baselines on 7c's dir: 8a xERTE at full width
      (emb 256-128-64-32, 3 DP steps, K 15, 40 attended edges, batch 128,
      cap factor 4) with XErteTrainer's seeded init: 8 timed forward
@@ -93,12 +98,29 @@ Phases (any failure raises, and the script exits non-zero):
      9d the CLI: one epoch of --mesh 1x1 --results_dir --sqlite
      --eval_splits writes its reports, and --mesh 2x1 on a one-GPU host
      exits non-zero with its reason.
+  10. bfloat16 compute and the native walker: 10a the family-sized KG of
+     phase 4 at the family entry with compute_dtype='bfloat16' and the
+     kernel (sort hops): 8 served batches (3 launches a batch) and 2 x 16
+     train steps (3 a step) timed in turns with float32 on the same
+     weights (ms, peak memory, profiles with idle shares); one batch
+     against the CPU's bf16 path (scores within 1e-3 of the row's
+     largest, or off float32 by at most twice the CPU's bf16 error) and
+     the card's float32 model (5e-2); one step's loss and
+     gradients against the CPU (loss rtol 1e-4, gradients within 2e-2 of
+     each parameter's largest); the kernel at the bf16 path's real sums
+     against its plain version. 10b the umls-sized KG at the registry's
+     defaults in bf16 (bitmap hops with the packed gather, then dense):
+     hop schemes, one batch and one step against the CPU, 2 x 16 steps
+     beside float32. 10c (in 10a, 10b and 7): the native walker's counts
+     equal to the numpy edge walk on the static KGs and to the bitmap
+     walk on the temporal splits, both timed.
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -200,8 +222,8 @@ def model_of(kg, cfg, device: str):
     return RedGNN(ModelConfig(
         n_ent=kg.n_ent, n_rel=kg.n_rel, hidden_dim=cfg.hidden_dim,
         attn_dim=cfg.attn_dim, n_layer=cfg.n_layer, act=cfg.act,
-        segment_impl=cfg.segment_impl, dedup_impl=cfg.dedup_impl,
-        scan_src_backward=cfg.scan_src_backward,
+        segment_impl=cfg.segment_impl, compute_dtype=cfg.compute_dtype,
+        dedup_impl=cfg.dedup_impl, scan_src_backward=cfg.scan_src_backward,
         dense_hops=cfg.dense_hops, dense_switch=cfg.dense_switch),
         device=device, generator=torch.Generator().manual_seed(SEED))
 
@@ -367,6 +389,11 @@ def phase_build():
     log(f"[build] segment_sum_sorted.cu -> {os.path.relpath(res['path'])} "
         f"in {res['seconds']:.2f} s (nvcc, sm_90a)")
     log_ptxas(res["log"])
+    host = _build.build_host("graphcore")
+    log(f"[build] native/graphcore.cpp -> {os.path.relpath(host['path'])} "
+        f"in {host['seconds']:.2f} s ({_build._host_cxx()} "
+        f"{' '.join(_build.HOST_FLAGS)})")
+    return host["seconds"]
 
 
 def kernel_hops(graph, caps, cfg, heads: torch.Tensor):
@@ -732,7 +759,8 @@ def kernel_train_hops_check(trainer, caps, card):
 
 def step_card_vs_cpu(data_dir: str, gpu, caps, tag: str = "[train]",
                      rtol: float = GRAD_RTOL,
-                     atol_rel: float = GRAD_ATOL_REL):
+                     atol_rel: float = GRAD_ATOL_REL,
+                     loss_rtol: float = 1e-5):
     """One step's loss, aux counts and every parameter's gradient on the
     card against the CPU plain path: same config and seed (same
     parameters), same batch, no dropout (inference-mode forward)."""
@@ -749,7 +777,7 @@ def step_card_vs_cpu(data_dir: str, gpu, caps, tag: str = "[train]",
         out[name] = (float(loss.detach()), {k: v.cpu() for k, v in aux.items()},
                      [g.cpu() for g in grads])
     (l_c, aux_c, g_c), (l_g, aux_g, g_g) = out["cpu"], out["cuda"]
-    assert abs(l_g - l_c) <= 1e-5 * abs(l_c), (l_g, l_c)
+    assert abs(l_g - l_c) <= loss_rtol * abs(l_c), (l_g, l_c)
     for k in aux_c:
         assert torch.equal(aux_g[k], aux_c[k]), k
     worst, nonzero = 0.0, 0
@@ -762,7 +790,7 @@ def step_card_vs_cpu(data_dir: str, gpu, caps, tag: str = "[train]",
             worst = max(worst, float((a - b).abs().max()) / scale)
     assert nonzero >= len(g_c) - 1, nonzero
     log(f"{tag} one step, card vs CPU (dropout 0): loss {l_g:.6f} vs "
-        f"{l_c:.6f} (rtol 1e-5); aux counts equal, num_edges "
+        f"{l_c:.6f} (rtol {loss_rtol}); aux counts equal, num_edges "
         f"{aux_c['num_edges'].tolist()}; {len(g_c)} parameter gradients "
         f"within rtol {rtol} + {atol_rel} * max|grad|, worst "
         f"max|diff| / max|grad| {worst:.3g}")
@@ -1747,6 +1775,7 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
         assert "dense" in kinds and kinds[0] == "bitmap", kinds
     else:
         assert kinds == ["bitmap"] * cfg.n_layer, kinds
+    walks = temporal_walks_check(kg, cfg, tag, card)
     # the caps are exact for the split's batches in its own order (the JAX
     # Predictor's profile), so the split is served in that order
     queries = kg.splits["test"][:N_BATCHES * pred.batch]
@@ -1783,8 +1812,50 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
     temporal_profile_steps(trainer, card)
     temporal_eval_check(trainer, tag, card)
     kernel.update(serve_ms=float(np.mean(times)), step_ms=step_ms,
-                  walk_s=walk_s, serve_peak=peak, train_peak=train_peak)
+                  walk_s=walk_s, walks=walks, serve_peak=peak,
+                  train_peak=train_peak)
     return kernel
+
+
+def temporal_walks_check(kg, cfg, tag: str, card):
+    """10c, inside phase 7: the exact per-query counts of the whole test
+    split through both host walkers, the scipy bitmap walk and the native
+    walker (windowed in forecasting), timed on this host in turns
+    (bitmap, native, native, bitmap): equal counts. Returns the least
+    seconds of each walker."""
+    from redgnn_tpu_torch.graph import calibrate as cal
+    from redgnn_tpu_torch.train import temporal_loop
+
+    data = kg.splits["test"]
+    if cfg.mode == "extrapolation" and cfg.window is not None:
+        args = (kg.ekey_np, kg.graph_np[2], kg.n_ent, kg.time_key_base,
+                data[:, 0], data[:, 3], cfg.window, cfg.n_layer)
+        walkers = {"bitmap": cal.per_query_counts_windowed,
+                   "native": cal.per_query_counts_windowed_native}
+    else:
+        args = (kg.graph_np[0], kg.graph_np[2], kg.n_ent, data[:, 0],
+                cfg.n_layer)
+        walkers = {"bitmap": cal.per_query_counts_dense,
+                   "native": cal.per_query_counts}
+    out, runs = {}, {"bitmap": [], "native": []}
+    for name in ("bitmap", "native", "native", "bitmap"):
+        t0 = time.perf_counter()
+        out[name] = walkers[name](*args)
+        runs[name].append(time.perf_counter() - t0)
+    for a, b in zip(out["bitmap"], out["native"]):
+        assert np.array_equal(a, b), "the two walkers' counts differ"
+    route = temporal_loop.query_counts(kg, cfg, data[:64])
+    assert all(np.array_equal(a, b[:64])
+               for a, b in zip(route, out["bitmap"]))
+    log(f"{tag} 10c: exact per-query counts of the {len(data)} test "
+        f"queries ({len(np.unique(data[:, 0]))} heads, "
+        f"{len(np.unique(data[:, 3]))} times): bitmap walk "
+        f"{runs['bitmap'][0]:.3f} / {runs['bitmap'][1]:.3f} s, native "
+        f"walker {runs['native'][0]:.3f} / {runs['native'][1]:.3f} s (host "
+        f"clock, in turns: bitmap, native, native, bitmap), counts equal "
+        f"and equal to the trainer's route (query_counts: the bitmap walk) "
+        f"({card})")
+    return {name: min(t) for name, t in runs.items()}
 
 
 
@@ -2672,6 +2743,228 @@ def phase_mesh(family_dir: str, card):
     return out
 
 
+# ------------------------------------------ phase 10: bfloat16, native
+
+# bf16 against the CPU's bf16 path and against float32: the bounds that
+# tests/test_torch_bf16.py states (scores within 1e-3 of the row's largest
+# |score|; gradients within 2e-2 of each parameter's largest |grad|;
+# against float32 atol and rtol 5e-2, the JAX package's own bf16 bound).
+# A float32 difference of ~1e-7 in a hop's sums flips a bf16 rounding of
+# the next hop's rows now and then; on the umls-sized KG's dense hops
+# (index_add_, float atomics in a new order on every run) the card's bf16
+# scores lay 3.95e-4 and 7.36e-4 of the row's largest off the CPU's in two
+# runs. So a batch whose card-vs-CPU difference passes 1e-3 is held, as
+# phase 7 holds its float32 scores to float64, by its error: the card's
+# bf16 scores may lie off the same weights' float32 scores by at most
+# twice as much as the CPU's bf16 scores do.
+BF16_SCORE_TOL, BF16_GRAD_TOL, BF16_F32_TOL = 1e-3, 2e-2, 5e-2
+BF16_STEPS = 16
+
+
+def bf16_batch_check(model, pred, q, tag: str):
+    """One bf16 batch on the card against the same model on the CPU (the
+    plain path) and against the card's float32 model with the same
+    weights: aux counts equal, scores within BF16_SCORE_TOL of the row's
+    largest |score| (or, past it, off float32 by at most twice the CPU's
+    bf16 scores' error) and within BF16_F32_TOL of float32."""
+    from redgnn_tpu_torch.models.redgnn import RedGNN
+
+    assert model.cfg.compute_dtype == "bfloat16"
+    cpu = RedGNN(model.cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    f32 = RedGNN(dataclasses.replace(model.cfg, compute_dtype="float32"),
+                 device="cuda")
+    f32.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        s_gpu, aux = model(pred.graph, *batch_tensors(pred, q), pred.caps)
+        s_f32, _ = f32(pred.graph, *batch_tensors(pred, q), pred.caps)
+        s_cpu, aux_cpu = cpu(pred.graph.to("cpu"),
+                             *(t.cpu() for t in batch_tensors(pred, q)),
+                             pred.caps)
+    for k in aux:
+        assert torch.equal(aux[k].cpu(), aux_cpu[k]), k
+    s_gpu, s_f32 = s_gpu.cpu(), s_f32.cpu()
+    assert bool(torch.isfinite(s_gpu).all())
+    scale = s_cpu.abs().amax(1, keepdim=True)
+    assert float(scale.min()) > 0
+    rel = float(((s_gpu - s_cpu).abs() / scale).max())
+    err_gpu = float(((s_gpu - s_f32).abs() / scale).max())
+    err_cpu = float(((s_cpu - s_f32).abs() / scale).max())
+    assert rel <= BF16_SCORE_TOL or err_gpu <= 2 * err_cpu, \
+        (rel, err_gpu, err_cpu)
+    torch.testing.assert_close(s_gpu, s_f32, rtol=BF16_F32_TOL,
+                               atol=BF16_F32_TOL)
+    vs_f32 = float((s_gpu - s_f32).abs().max())
+    assert vs_f32 > 0, "bf16 scores equal float32's: nothing was rounded"
+    log(f"{tag} bf16 card vs CPU bf16, one batch: max |score diff| "
+        f"{rel:.3g} of the row's largest |score| (bound "
+        f"{BF16_SCORE_TOL}, or off float32 at most twice the CPU's: card "
+        f"{err_gpu:.3g}, CPU {err_cpu:.3g} of the row's largest); aux "
+        f"equal, num_edges {aux_cpu['num_edges'].tolist()}; vs the card's "
+        f"float32 model max |diff| {vs_f32:.3g} (atol and rtol "
+        f"{BF16_F32_TOL})")
+    return rel
+
+
+def bf16_walks_check(kg, n_layer: int, tag: str, card):
+    """10c on a static KG: the native walker's per-query counts of the
+    training queries and one batch's simulate_hops against the numpy edge
+    walk (the plain reference), both timed on this host."""
+    from redgnn_tpu_torch.graph import calibrate as cal
+
+    rowptr, _, tail = kg.graph_np
+    heads = kg.train_data[:, 0]
+    secs, out = {}, []
+    for name, fn in (("native", cal.per_query_counts),
+                     ("numpy", cal.per_query_counts_numpy)):
+        t0 = time.perf_counter()
+        out.append(fn(rowptr, tail, kg.n_ent, heads, n_layer))
+        secs[name] = time.perf_counter() - t0
+    for a, b in zip(*out):
+        assert np.array_equal(a, b), "native and numpy counts differ"
+    nc, ec = cal._walk(rowptr, tail, kg.n_ent, heads[:50], n_layer)
+    assert cal.simulate_hops(rowptr, tail, kg.n_ent, heads[:50],
+                             n_layer) == (nc.sum(0).tolist(),
+                                          ec.sum(0).tolist())
+    log(f"{tag} 10c: per-query counts of {len(heads)} training queries "
+        f"({len(np.unique(heads))} heads, L={n_layer}): native walker "
+        f"{secs['native']:.4f} s, numpy edge walk {secs['numpy']:.4f} s "
+        f"(host clock, one run each), equal; simulate_hops of one batch "
+        f"of 50 equal ({card})")
+    return secs
+
+
+def bf16_kernel_calls(model, pred, q, trainer, caps, tag: str, card):
+    """The kernel at the bf16 path's real segment sums, one served batch
+    and one train step, against its plain version (`dense_kernel_check`:
+    forward, backward bit for bit, times)."""
+    from redgnn_tpu_torch.train.loop import softmax_ce_loss
+
+    # no_grad, not inference_mode: the recorded ids go through autograd in
+    # the backward check
+    with torch.no_grad():
+        calls = record_segment_sums(
+            lambda: model(pred.graph, *batch_tensors(pred, q), pred.caps))
+    rows = dense_kernel_check(calls, None, f"{tag} bf16 serving", card)
+
+    def one_step():
+        subs, rels, objs, qmask = step_tensors(trainer, 0)
+        scores, _ = trainer.model(trainer.kg.graph, subs, rels, qmask, caps)
+        softmax_ce_loss(scores, objs, qmask).backward()
+
+    calls = record_segment_sums(one_step)
+    trainer.model.zero_grad(set_to_none=True)
+    return rows + dense_kernel_check(calls, None, f"{tag} bf16 training",
+                                     card)
+
+
+def bf16_serve_and_train(data_dir: str, dataset: str, tag: str, card,
+                         **over):
+    """Serving and training of the registry entry ``dataset`` with
+    ``over`` in bf16 and in float32, timed in turns (float32, bf16) on the
+    same weights and batches: ms per batch, ms per step, peak memory,
+    kernel launches (each counter set to 0 just before the served
+    batches and the steps). Returns the runs by dtype."""
+    from redgnn_tpu_torch.ops.segment_sorted import segment_sum_sorted_checked
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        kg, cfg, model, pred = build_slice(data_dir, "cuda", dataset,
+                                           compute_dtype=dtype, **over)
+        queries = serving_queries(kg, N_BATCHES * pred.batch)
+        timed_batches(pred, queries, 1)  # warm-up, not counted
+        segment_sum_sorted_checked.launches = 0
+        times, peak = timed_batches(pred, queries, N_BATCHES)
+        launches = segment_sum_sorted_checked.launches
+        trainer = make_trainer(data_dir, "cuda", dataclasses.replace(
+            cfg, scan_chunk=BF16_STEPS), steps=BF16_STEPS)
+        segment_sum_sorted_checked.launches = 0
+        step_ms, step_peak = train_steps_check(trainer, BF16_STEPS,
+                                               f"{tag} {dtype}", card)
+        out[dtype] = dict(kg=kg, cfg=cfg, model=model, pred=pred,
+                          queries=queries, trainer=trainer,
+                          serve_ms=float(np.mean(times)), serve_peak=peak,
+                          serve_launches=launches,
+                          train_launches=segment_sum_sorted_checked.launches,
+                          step_ms=step_ms, step_peak=step_peak)
+    f, b = out["float32"], out["bfloat16"]
+    log(f"{tag} {dataset} entry, {over}: served {N_BATCHES} batches of "
+        f"{b['pred'].batch}: bf16 {b['serve_ms']:.3f} ms per batch, peak "
+        f"{b['serve_peak']} B, {b['serve_launches']} kernel launches; "
+        f"float32 {f['serve_ms']:.3f} ms, peak {f['serve_peak']} B, "
+        f"{f['serve_launches']} launches. Train steps (2 x {BF16_STEPS}, "
+        f"the second epoch timed): bf16 {b['step_ms']:.3f} ms per step, "
+        f"peak {b['step_peak']} B, {b['train_launches']} launches; "
+        f"float32 {f['step_ms']:.3f} ms, peak {f['step_peak']} B, "
+        f"{f['train_launches']} launches ({card})")
+    return out
+
+
+def phase_bf16_family(data_dir: str, card):
+    """10a: the family-sized KG of phase 4, family entry in bf16 with the
+    kernel (sort dedup, so the hidden[src] gathers take gather_bf16):
+    serving and training counted and timed beside float32, one batch and
+    one step against the CPU, the kernel at the path's real sums, idle
+    shares. Returns the kernel's bf16 rows and launches."""
+    from redgnn_tpu_torch.models.redgnn import hop_plan
+
+    out = bf16_serve_and_train(data_dir, "family", "[10a]", card,
+                               **KERNEL_SLICE)
+    b = out["bfloat16"]
+    model, pred, trainer = b["model"], b["pred"], b["trainer"]
+    n_layer = model.cfg.n_layer
+    kinds = hop_plan(model.cfg, pred.graph, pred.caps, pred.batch)
+    assert kinds == ["sort"] * n_layer, kinds
+    for d in out.values():
+        assert d["serve_launches"] == n_layer * N_BATCHES, d["serve_launches"]
+        assert d["train_launches"] == 2 * BF16_STEPS * n_layer, \
+            d["train_launches"]
+    q0 = b["queries"][:pred.batch]
+    bf16_batch_check(model, pred, q0, "[10a]")
+    plain = make_trainer(data_dir, "cuda", dataclasses.replace(
+        b["cfg"], dropout=0.0), steps=BF16_STEPS)
+    caps = exact_train_caps(plain)
+    step_card_vs_cpu(data_dir, plain, caps, f"[10a] bf16, hops {kinds}:",
+                     0.0, BF16_GRAD_TOL, loss_rtol=1e-4)
+    rows = bf16_kernel_calls(model, pred, q0, plain, caps, "[10a]", card)
+    for dtype, d in out.items():
+        log(f"[10a] {dtype}: profile of 2 served batches, then of 2 steps")
+        profile_batches(d["pred"], d["queries"][:2 * pred.batch], card)
+        profile_steps(d["trainer"], d["trainer"].train_caps, card)
+    bf16_walks_check(b["kg"], n_layer, "[10a]", card)
+    return {"rows": rows, "serve_launches": b["serve_launches"],
+            "train_launches": b["train_launches"],
+            "serve_ms": b["serve_ms"], "step_ms": b["step_ms"],
+            "f32_serve_ms": out["float32"]["serve_ms"],
+            "f32_step_ms": out["float32"]["step_ms"]}
+
+
+def phase_bf16_umls(data_dir: str, card):
+    """10b: the umls-sized KG at the registry's defaults in bf16 (bitmap
+    hops with the packed gather, then dense hops): hop schemes, one batch
+    and one step against the CPU, 2 x 16 steps timed beside float32."""
+    from redgnn_tpu_torch.models.redgnn import hop_plan
+
+    out = bf16_serve_and_train(data_dir, "umls", "[10b]", card)
+    b = out["bfloat16"]
+    model, pred = b["model"], b["pred"]
+    kinds = hop_plan(model.cfg, pred.graph, pred.caps, pred.batch)
+    assert "bitmap" in kinds and "dense" in kinds, kinds
+    tr = make_trainer(data_dir, "cuda", b["cfg"], steps=BF16_STEPS)
+    caps = exact_train_caps(tr)
+    tkinds = hop_plan(tr.model_cfg, tr.kg.graph, caps, b["cfg"].n_batch)
+    assert "bitmap" in tkinds and "dense" in tkinds, tkinds
+    log(f"[10b] hops in bf16: serving (batch {pred.batch}) {kinds}, "
+        f"training (batch {b['cfg'].n_batch}) {tkinds}")
+    bf16_batch_check(model, pred, b["queries"][:pred.batch], "[10b]")
+    step_card_vs_cpu(data_dir, tr, caps, f"[10b] bf16, hops {tkinds}:",
+                     0.0, BF16_GRAD_TOL, loss_rtol=1e-4)
+    bf16_walks_check(b["kg"], model.cfg.n_layer, "[10b]", card)
+    return {"serve_ms": b["serve_ms"], "step_ms": b["step_ms"],
+            "f32_serve_ms": out["float32"]["serve_ms"],
+            "f32_step_ms": out["float32"]["step_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script "
@@ -2688,7 +2981,7 @@ def main() -> int:
 
     name, smi = phase_device()
     card = smi
-    phase_build()
+    native_build_s = phase_build()
     with tempfile.TemporaryDirectory() as tmp:
         write_synthetic_kg(tmp)
         kg, _, model, pred = build_slice(tmp, "cuda", **KERNEL_SLICE)
@@ -2720,6 +3013,15 @@ def main() -> int:
         write_synthetic_kg(tmp)
         kernel["mesh"] = phase_mesh(tmp, card)
     took("phase 9")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_synthetic_kg(tmp)
+        kernel["bf16"] = phase_bf16_family(tmp, card)
+        took("phase 10a")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_umls_sized_kg(tmp)
+        kernel["bf16"]["umls"] = phase_bf16_umls(tmp, card)
+    kernel["bf16"]["native_build_s"] = native_build_s
+    took("phase 10b")
     if FAILED:
         print("chip_smoke: failed checks:\n" + "\n".join(FAILED),
               file=sys.stderr)
@@ -2730,7 +3032,8 @@ def main() -> int:
         + [r["max_abs_err"] for part in [kernel["dense"]]
            + list(kernel["temporal"].values())
            for k in ("serve", "train") for r in part[k]]
-        + [r["max_abs_err"] for part in kernel["mesh"] for r in part["rows"]])
+        + [r["max_abs_err"] for part in kernel["mesh"] for r in part["rows"]]
+        + [r["max_abs_err"] for r in kernel["bf16"]["rows"]])
     log(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,12 +1,15 @@
-"""Build the port's CUDA kernels at first use.
+"""Build the port's native libraries at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into a shared library under ``redgnn_tpu_torch/_build/``
-(git-ignored), then loaded with ``ctypes``. The file name carries a hash
-of the source, so an edited kernel is rebuilt and never confused with a
-stale one; the library is compiled to a temporary name and moved into
-place with ``os.replace`` (dlopen caches by inode, and a half-written file
-is never loaded).
+(git-ignored), then loaded with ``ctypes``. The host-side graph walker
+``native/<name>.cpp`` is built the same way by the host's C++ compiler
+(``g++``, else ``c++``; ``nvcc`` needs one too). A library's file name
+carries a hash of its source, so an edited source is rebuilt and never
+confused with a stale library; it is compiled to a temporary name that
+holds the process id and moved into place with ``os.replace`` (dlopen
+caches by inode, a half-written file is never loaded, and processes that
+build at once do not clash).
 """
 
 from __future__ import annotations
@@ -20,9 +23,11 @@ import time
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+NATIVE_DIR = os.path.join(PKG_DIR, "native")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 
 def _nvcc() -> str:
@@ -37,39 +42,66 @@ def _nvcc() -> str:
                        "CUDA toolkit (PATH or CUDA_HOME)")
 
 
-def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` is built to (hash of its source)."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
+def _host_cxx() -> str:
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (g++ or c++) on PATH: the "
+                       "native graph walker is built with one")
+
+
+def _library_path(src: str, name: str) -> str:
+    with open(src, "rb") as f:
         digest = hashlib.sha1(f.read()).hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
-def build(name: str) -> dict:
-    """Compile ``csrc/<name>.cu`` if its library is not built yet.
+def library_path(name: str) -> str:
+    """Where ``csrc/<name>.cu`` is built to (hash of its source)."""
+    return _library_path(os.path.join(CSRC_DIR, f"{name}.cu"), name)
 
-    Returns ``{"path", "seconds", "log"}``: seconds spent in nvcc (0.0
-    when the library was already there) and nvcc's output, which holds
-    the ``-Xptxas -v`` register and shared-memory report."""
-    path = library_path(name)
+
+def _compile(path: str, command, what: str) -> dict:
+    """Run ``command(tmp)`` to build the library ``path`` unless it is
+    there. Returns ``{"path", "seconds", "log"}``: seconds spent compiling
+    (0.0 when the library was already built) and the compiler's output."""
     log_path = path[:-3] + ".log"
     if os.path.exists(path):
         log = open(log_path).read() if os.path.exists(log_path) else ""
         return {"path": path, "seconds": 0.0, "log": log}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC_DIR, f"{name}.cu")]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run(command(tmp), capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(rc {proc.returncode}):\n{log}")
-    with open(log_path, "w") as f:
+        raise RuntimeError(f"{what} failed (rc {proc.returncode}):\n{log}")
+    with open(f"{log_path}.tmp{os.getpid()}", "w") as f:
         f.write(log)
+    os.replace(f"{log_path}.tmp{os.getpid()}", log_path)
     os.replace(tmp, path)
     return {"path": path, "seconds": seconds, "log": log}
+
+
+def build(name: str) -> dict:
+    """Compile ``csrc/<name>.cu`` with nvcc if its library is not built
+    yet; nvcc's output holds the ``-Xptxas -v`` register and
+    shared-memory report."""
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    return _compile(library_path(name),
+                    lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                    f"nvcc for {name}.cu")
+
+
+def build_host(name: str) -> dict:
+    """Compile ``native/<name>.cpp`` with the host's C++ compiler if its
+    library is not built yet."""
+    src = os.path.join(NATIVE_DIR, f"{name}.cpp")
+    return _compile(_library_path(src, name),
+                    lambda tmp: [_host_cxx(), *HOST_FLAGS, src, "-o", tmp],
+                    f"the host compiler for {name}.cpp")
 
 
 def load(name: str) -> ctypes.CDLL:

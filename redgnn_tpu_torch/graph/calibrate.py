@@ -7,11 +7,14 @@ headroom and rounded up. Keeping the shapes static keeps every
 intermediate comparable with the JAX package bit for bit, and leaves the
 door open to CUDA-graph capture.
 
-The static counts come from the JAX package's numpy edge walk (its path
-when its native walker is unbuilt; the native walker is not ported
-yet). The temporal counts come from a frontier-bitmap walk over scipy's
-sparse adjacency (`_walk_bitmap`): the same counts, at a cost that does
-not grow with the frontiers, which saturate on temporal graphs.
+The static counts come from the native walker (`redgnn_tpu_torch.native`,
+the port's copy of the JAX package's ``graphcore.cpp``, built at first
+use), as in the JAX package; unlike there, a failed build raises instead
+of falling back. The numpy edge walk (`_walk`) stays as the plain
+reference the tests hold it to. The temporal counts come from a
+frontier-bitmap walk over scipy's sparse adjacency (`_walk_bitmap`): the
+same counts, at a cost that does not grow with the frontiers, which
+saturate on temporal graphs.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from dataclasses import dataclass
 from typing import List, Tuple
 
 import numpy as np
+
+from redgnn_tpu_torch import native
 
 
 # unique query heads walked together by per_query_counts
@@ -87,9 +92,9 @@ def simulate_hops(
     heads: np.ndarray,
     n_layer: int,
 ) -> Tuple[List[int], List[int]]:
-    """Exact node/edge counts per hop for one batch of query heads."""
-    nc, ec = _walk(rowptr, tail, n_ent, np.asarray(heads, np.int64), n_layer)
-    return [int(c) for c in nc.sum(0)], [int(c) for c in ec.sum(0)]
+    """Exact node/edge counts per hop for one batch of query heads (the
+    native walker)."""
+    return native.simulate_hops(rowptr, tail, n_ent, heads, n_layer)
 
 
 def per_query_counts(
@@ -106,8 +111,25 @@ def per_query_counts(
     elements, so any batch's frontier counts are exactly the sum of its
     queries' rows — this is what makes permutation-exact capacity
     calibration possible (`caps_for_batches`). Counts depend only on the
-    query head, so unique heads are walked once (``_WALK_CHUNK`` at a
-    time, which bounds the walk's memory) and broadcast back."""
+    query head, so unique heads are walked once (the native walker) and
+    broadcast back."""
+    heads = np.asarray(heads, np.int64)
+    uniq, inv = np.unique(heads, return_inverse=True)
+    ncs, ecs = native.per_query_hop_counts(rowptr, tail, n_ent, uniq,
+                                           n_layer)
+    return ncs[inv], ecs[inv]
+
+
+def per_query_counts_numpy(
+    rowptr: np.ndarray,
+    tail: np.ndarray,
+    n_ent: int,
+    heads: np.ndarray,
+    n_layer: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """`per_query_counts` through the numpy edge walk (`_walk`), unique
+    heads ``_WALK_CHUNK`` at a time (which bounds the walk's memory): the
+    plain reference of the native walker."""
     heads = np.asarray(heads, np.int64)
     uniq, inv = np.unique(heads, return_inverse=True)
     ncs = np.zeros((len(uniq), n_layer + 1), np.int64)
@@ -226,6 +248,29 @@ def per_query_counts_windowed(
                                           n_layer, keep_frontier=True)
         ncs[rows], ecs[rows] = nc[inv], ec[inv]
     return ncs, ecs
+
+
+def per_query_counts_windowed_native(
+    ekey: np.ndarray,
+    tail: np.ndarray,
+    n_ent: int,
+    key_base: int,
+    heads: np.ndarray,
+    times: np.ndarray,
+    window: int,
+    n_layer: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """`per_query_counts_windowed` (the same counts) through the native
+    walker, as the JAX package computes them: each unique (head, time)
+    pair is walked once, query by query, and broadcast back."""
+    heads = np.asarray(heads, np.int64)
+    times = np.asarray(times, np.int64)
+    t_span = int(times.max()) + 1 if len(times) else 1
+    uniq, inv = np.unique(heads * t_span + times, return_inverse=True)
+    ncs, ecs = native.per_query_hop_counts_windowed(
+        ekey, tail, n_ent, key_base, uniq // t_span, uniq % t_span, window,
+        n_layer)
+    return ncs[inv], ecs[inv]
 
 
 def simulate_hops_windowed(

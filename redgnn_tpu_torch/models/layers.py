@@ -11,6 +11,16 @@ one hop either over a sparse frontier (`RelAttnLayer.forward`) or over
 the whole tail-sorted edge table, batch-shared (`RelAttnLayer.dense`);
 both use one parameter set.
 
+``compute_dtype="bfloat16"`` (the JAX package's field) computes as the
+JAX package does: the gathered rows (``h_src``, the relation rows, the
+dense hop's packed state) are bf16 copies; the attention projections
+take them promoted back to float32 (flax's ``nn.Dense`` with float32
+parameters and a bf16 input computes in float32; the weights are never
+rounded); ``h_src + h_rel`` is one bf16 add; the message, its sum and
+everything after are float32. One deliberate difference: the gradients of
+those gathers are summed in float32 (`ops/gather.py`), where the JAX
+package's sum in bf16 stalls on rows gathered hundreds of times.
+
 Under a mesh with an edge axis (``edge_shards > 1``, the JAX package's
 ``edge_axis``) a sparse hop slices the padded edge list into
 ``edge_shards`` contiguous chunks, takes this rank's chunk, and sums the
@@ -31,9 +41,11 @@ import torch
 from torch import nn
 
 from redgnn_tpu_torch.ops.frontier import Frontier
-from redgnn_tpu_torch.ops.gather import take_rows
+from redgnn_tpu_torch.ops.gather import gather_bf16, take_rows
 from redgnn_tpu_torch.ops.segment import segment_sum
 from redgnn_tpu_torch.parallel.mesh import all_reduce_sum
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 ACTIVATIONS: Dict[str, Callable] = {
     "relu": torch.relu,
@@ -68,12 +80,19 @@ class RelAttnLayer(nn.Module):
                  generator: torch.Generator | None = None,
                  mxu_gather_backward: bool = True,
                  edge_axis: str | None = None, edge_shards: int = 1,
-                 mesh=None):
+                 mesh=None, compute_dtype: str = "float32"):
         """``mxu_gather_backward`` sends the relation-table lookups through
         `take_rows` (one-hot matmul backward); off, they are plain
         gathers. ``edge_axis`` names the ``mesh`` axis whose
-        ``edge_shards`` ranks split each sparse hop's edges."""
+        ``edge_shards`` ranks split each sparse hop's edges.
+        ``compute_dtype`` is 'float32' or 'bfloat16' (the gathered rows;
+        see the module's docstring)."""
         super().__init__()
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of "
+                             f"{sorted(COMPUTE_DTYPES)}, got "
+                             f"{compute_dtype!r}")
+        self.cdt = COMPUTE_DTYPES[compute_dtype]
         self.act = act
         self.segment_impl = segment_impl
         self.mxu_gather_backward = mxu_gather_backward
@@ -93,6 +112,13 @@ class RelAttnLayer(nn.Module):
         self.Wqr_attn = _linear(hidden_dim, attn_dim, True, generator)
         self.w_alpha = _linear(attn_dim, 1, True, generator)
         self.W_h = _linear(hidden_dim, hidden_dim, False, generator)
+
+    def _rows(self, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """``table[idx]`` in the compute dtype: a plain gather in float32,
+        the float32-accumulating `gather_bf16` in bf16."""
+        if self.cdt == torch.float32:
+            return table[idx.long()]
+        return gather_bf16(table, idx)
 
     def forward(
         self,
@@ -126,7 +152,7 @@ class RelAttnLayer(nn.Module):
             # h_src was fetched inside the frontier's metadata gather,
             # whose backward is a scatter-free range difference of the
             # gradient's prefix sum (ops/gather.gather_rows_packed)
-            hs = frontier.src_values                       # (E, D)
+            hs = frontier.src_values.to(self.cdt)          # (E, D)
         else:
             # The frontier gives every padding edge the last frontier slot
             # as src. Their messages are masked below, so the row they
@@ -138,19 +164,28 @@ class RelAttnLayer(nn.Module):
             spread = torch.arange(src.shape[0], device=src.device) \
                 % hidden_prev.shape[0]
             src = torch.where(valid, src.long(), spread)
-            hs = hidden_prev[src]                          # (E, D)
+            hs = self._rows(hidden_prev, src)              # (E, D)
         # under the edge axis the JAX package takes plain gathers too
         if self.mxu_gather_backward and not sharded:
-            hr = take_rows(self.rela_embed, rel)           # (E, D)
-            h_qr = take_rows(take_rows(self.rela_embed, q_rel), batch)
-        else:
+            rela_c = self.rela_embed.to(self.cdt)
+            hr = take_rows(rela_c, rel)                    # (E, D)
+            h_qr = take_rows(take_rows(rela_c, q_rel), batch)
+        elif self.cdt == torch.float32:
             hr = self.rela_embed[rel.long()]
             h_qr = self.rela_embed[q_rel.long()][batch.long()]
+        else:
+            # rela_c[q_rel][batch] as one gather: the same rows, one sum
+            hr = gather_bf16(self.rela_embed, rel)
+            h_qr = gather_bf16(self.rela_embed, q_rel.long()[batch.long()])
 
+        # the projections promote bf16 rows to float32 (a no-op in float32)
+        f32 = torch.float32
         logits = self.w_alpha(torch.relu(
-            self.Ws_attn(hs) + self.Wr_attn(hr) + self.Wqr_attn(h_qr)))
+            self.Ws_attn(hs.to(f32)) + self.Wr_attn(hr.to(f32))
+            + self.Wqr_attn(h_qr.to(f32))))
         alpha = torch.sigmoid(logits)
-        message = (hs + hr) * alpha
+        # one add in the compute dtype; the message is float32
+        message = (hs + hr).to(f32) * alpha
         message = torch.where(valid[:, None], message, 0.0)
         # The frontier gives all padding edges one dst (the first free slot,
         # or node_cap-1) and zero messages; send them past the end instead,
@@ -196,23 +231,27 @@ class RelAttnLayer(nn.Module):
         e_all = tsrc.shape[0]
 
         # pack the visited bit: one row gather per edge serves the batch
+        # (in bf16 the bit stays an exact 0 / 1)
         packed = torch.cat(
             [hidden_dense, visited[:, :, None].to(hidden_dense.dtype)], -1)
-        g = packed[tsrc.long()]                       # (E, b, d+1)
+        g = self._rows(packed, tsrc)                  # (E, b, d+1)
         hs = g[..., :d]
         live = g[..., d] > 0.5                        # (E, b)
 
-        hr = (take_rows(self.rela_embed, trel) if self.mxu_gather_backward
-              else self.rela_embed[trel.long()])  # (E, d)
-        h_qr = self.rela_embed[q_rel.long()]          # (b, d)
+        hr = (take_rows(self.rela_embed.to(self.cdt), trel)
+              if self.mxu_gather_backward
+              else self._rows(self.rela_embed, trel))  # (E, d)
+        h_qr = self._rows(self.rela_embed, q_rel)     # (b, d)
 
         # the attention terms factor: the hr / h_qr projections are shared
-        # over the batch / the edges; no (E, b, 3d) concat materializes
+        # over the batch / the edges; no (E, b, 3d) concat materializes.
+        # The projections promote bf16 rows to float32.
+        f32 = torch.float32
         logits = self.w_alpha(torch.relu(
-            self.Ws_attn(hs) + self.Wr_attn(hr)[:, None, :]
-            + self.Wqr_attn(h_qr)[None, :, :]))
+            self.Ws_attn(hs.to(f32)) + self.Wr_attn(hr.to(f32))[:, None, :]
+            + self.Wqr_attn(h_qr.to(f32))[None, :, :]))
         alpha = torch.sigmoid(logits)
-        message = (hs + hr[:, None, :]) * alpha
+        message = (hs + hr[:, None, :]).to(f32) * alpha
         message = torch.where(live[..., None], message, 0.0)
 
         if dense_agg == "cumsum":

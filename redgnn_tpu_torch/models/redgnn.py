@@ -17,7 +17,9 @@ graph with another vocabulary.
 Edge sharding (``edge_axis`` / ``edge_shards``, the JAX package's
 fields) splits each sparse hop's edges over a mesh's edge group
 (`models/layers.py`); a model built so takes the ``mesh`` and runs no
-dense hop, as in the JAX package. Not ported yet: bfloat16 compute.
+dense hop, as in the JAX package. ``compute_dtype="bfloat16"`` gathers
+bf16 rows in every layer (`models/layers.py`); the hidden states, the
+gate and the scores stay float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +58,8 @@ class ModelConfig:
     dropout: float = 0.29
     act: str = "relu"
     segment_impl: str = "xla"
+    # 'float32' or 'bfloat16': the dtype of the layers' gathered rows
+    compute_dtype: str = "float32"
     # node-dedup scheme per hop: 'sort', 'bitmap' or 'auto' (_resolve_dedup)
     dedup_impl: str = "auto"
     # bitmap hops fetch hidden[src] inside the frontier's metadata gather
@@ -153,7 +157,7 @@ class RedGNN(nn.Module):
                 segment_impl=cfg.segment_impl, generator=generator,
                 mxu_gather_backward=cfg.mxu_gather_backward,
                 edge_axis=cfg.edge_axis, edge_shards=cfg.edge_shards,
-                mesh=mesh))
+                mesh=mesh, compute_dtype=cfg.compute_dtype))
         self.gate = GRUGate(cfg.hidden_dim, generator=generator)
         self.W_final = nn.Linear(cfg.hidden_dim, 1, bias=False)
         _uniform_init_(self.W_final.weight, cfg.hidden_dim, generator)

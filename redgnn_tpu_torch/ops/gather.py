@@ -17,6 +17,15 @@ the gradient's prefix sum instead of a scatter-add. The prefix sum
 (``torch.cumsum``, float32) cancels large partial sums, so those
 gradients carry O(total magnitude * eps) noise: fine for training, not
 for a strict gradient comparison (``scan_src_backward=False`` there).
+
+bfloat16 compute (``compute_dtype="bfloat16"``) gathers rows of bf16
+copies of float32 tensors. The backward of such a gather adds the bf16
+cotangents of every row gathered more than once: in bf16 that sum stalls
+(at 256, adding ones: 256 + 1 rounds back to 256), as it does in the JAX
+package, whose gathers from bf16 tables scatter-add in bf16. Here every
+such sum is taken in float32: `gather_bf16` hands its float32 gradient
+straight to the float32 source, and `take_rows` on a bf16 table sums in
+float32 and rounds once, as the JAX package's one-hot product does.
 """
 
 from __future__ import annotations
@@ -44,6 +53,11 @@ class _TakeRows(torch.autograd.Function):
         r = ctx.table_shape[0]
         flat_idx = idx.reshape(-1).long()
         flat_g = g.reshape(flat_idx.shape[0], -1)
+        # a bf16 cotangent is summed in float32 and rounded once (the JAX
+        # package's one-hot product: preferred_element_type=float32)
+        low = flat_g.dtype != torch.float32
+        if low:
+            flat_g = flat_g.to(torch.float32)
         if flat_idx.shape[0] * r <= _ONEHOT_BUDGET:
             if g.is_cuda and torch.backends.cuda.matmul.allow_tf32:
                 raise RuntimeError(
@@ -55,6 +69,8 @@ class _TakeRows(torch.autograd.Function):
         else:
             d_table = flat_g.new_zeros((r, flat_g.shape[1])).index_put_(
                 (flat_idx,), flat_g, accumulate=True)
+        if low:
+            d_table = d_table.to(g.dtype)
         return d_table.reshape(ctx.table_shape), None
 
 
@@ -66,6 +82,42 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.requires_grad and torch.is_grad_enabled():
         return _TakeRows.apply(table, idx)
     return table[idx.long()]
+
+
+class _GatherBf16(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        i = idx.long()
+        ctx.save_for_backward(i)
+        ctx.table_shape = table.shape
+        return table.to(torch.bfloat16)[i]
+
+    @staticmethod
+    def backward(ctx, g):
+        (i,) = ctx.saved_tensors
+        flat_i = i.reshape(-1)
+        flat_g = g.reshape((flat_i.shape[0],) + ctx.table_shape[1:])
+        # float32 sums; index_put_ sorts the indices on a CUDA device and
+        # adds equal ones in order (no float atomics)
+        d_table = flat_g.new_zeros(ctx.table_shape, dtype=torch.float32)
+        return d_table.index_put_((flat_i,), flat_g.to(torch.float32),
+                                  accumulate=True), None
+
+
+def gather_bf16(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table.to(bfloat16)[idx]``: rows of the bf16 copy of a float32
+    ``table``, whose gradient is the float32 sum of the rows' bf16
+    cotangents, handed to ``table`` as it is (no bf16 round trip).
+
+    table: (R, ...) float32 tensor; idx: int tensor of any shape with
+    values in [0, R). Returns idx.shape + table.shape[1:], bf16."""
+    if table.dtype != torch.float32:
+        raise TypeError(f"gather_bf16 takes a float32 table, got "
+                        f"{table.dtype}")
+    if table.requires_grad and torch.is_grad_enabled():
+        return _GatherBf16.apply(table, idx)
+    return table.to(torch.bfloat16)[idx.long()]
 
 
 class _TakeRowsSorted(torch.autograd.Function):

@@ -264,10 +264,6 @@ class StaticTrainer(FlatParams):
         queries), ``n_tbatch`` is rounded up to a multiple of the data
         axis, and evaluation shards the same way with the metric sums
         summed over the mesh."""
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} is not ported yet; "
-                "the port computes in float32")
         self.kg = kg
         self.cfg = cfg
         self.device = kg.graph.device
@@ -283,7 +279,7 @@ class StaticTrainer(FlatParams):
             n_ent=kg.n_ent, n_rel=kg.n_rel, hidden_dim=cfg.hidden_dim,
             attn_dim=cfg.attn_dim, n_layer=cfg.n_layer, dropout=cfg.dropout,
             act=cfg.act, segment_impl=cfg.segment_impl,
-            dedup_impl=cfg.dedup_impl,
+            compute_dtype=cfg.compute_dtype, dedup_impl=cfg.dedup_impl,
             scan_src_backward=cfg.scan_src_backward,
             dense_hops=cfg.dense_hops, dense_switch=cfg.dense_switch,
         )

@@ -148,7 +148,15 @@ def query_counts(kg: TemporalKG, cfg: TemporalTrainConfig,
                  data: np.ndarray):
     """Exact per-query hop counts (nodes (n, L+1), edges (n, L)) of the
     quadruples ``data``: windowed in extrapolation, by head over the whole
-    timeline otherwise."""
+    timeline otherwise.
+
+    Both take the scipy bitmap walk, where the JAX package takes its
+    native walker: of the port's two walkers, which give the same counts
+    (graph/calibrate.py), the bitmap walk was the faster on ICEWS14-sized
+    test splits, timed on the host CPU of an NVIDIA H100 machine
+    (chip_smoke.py phase 7, PERF.md §5): 1.6-1.7x over the whole timeline
+    and 3.6-5.9x in the window, where the native walker walks each
+    (head, time) pair and the bitmap walk each time once."""
     if _windowed(cfg):
         return per_query_counts_windowed(
             kg.ekey_np, kg.graph_np[2], kg.n_ent, kg.time_key_base,

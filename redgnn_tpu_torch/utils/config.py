@@ -43,6 +43,11 @@ class TrainConfig:
     cap_headroom: float = 1.2
     scan_chunk: int = 256
 
+    def __post_init__(self):
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or "
+                             f"'bfloat16', got {self.compute_dtype!r}")
+
 
 # `Static/transductive/train.py:46-111`
 _STATIC_TRANS = {

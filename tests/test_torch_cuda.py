@@ -346,6 +346,48 @@ def test_model_on_card_matches_cpu(card):
         assert torch.equal(aux_gpu[k].cpu(), aux_cpu[k]), k
 
 
+@pytest.mark.parametrize("settings", [
+    dict(segment_impl="pallas", dense_hops=False),
+    dict(segment_impl="xla", dedup_impl="auto", dense_hops=True,
+         dense_switch=0.4)], ids=["kernel_sort", "defaults_dense"])
+def test_bf16_train_step_on_card_matches_cpu(card, tmp_path, settings):
+    """compute_dtype='bfloat16' on the card against the CPU: scores of one
+    batch within 1e-3 of the row's largest |score|, one step's loss rtol
+    1e-4 and gradients within 2e-2 of each parameter's largest (the
+    bounds of tests/test_torch_bf16.py); the kernel launched once a sort
+    hop, and the card's bf16 scores within 5e-2 of its float32 ones."""
+    d = _write_kg(tmp_path, np.random.default_rng(0))
+    out = {}
+    for dev, dtype in (("cpu", "bfloat16"), ("cuda", "bfloat16"),
+                       ("cuda", "float32")):
+        cfg = TrainConfig(**dict(TRAIN, **settings), dropout=0.0,
+                          compute_dtype=dtype)
+        tr = StaticTrainer(StaticKG.load(d, device=dev), cfg)
+        b = cfg.n_batch
+        batch = torch.as_tensor(tr.kg.train_data[:b], dtype=torch.int32,
+                                device=dev)
+        qmask = torch.ones(b, dtype=torch.bool, device=dev)
+        before = segment_sum_sorted_checked.launches
+        scores, _ = tr.model(tr.kg.graph, batch[:, 0], batch[:, 1], qmask,
+                             tr.train_caps)
+        launched = segment_sum_sorted_checked.launches - before
+        loss = softmax_ce_loss(scores, batch[:, 2], qmask)
+        grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+        out[dev, dtype] = (scores.detach().cpu(), loss.item(),
+                           [g.cpu() for g in grads], launched)
+    (s_c, l_c, g_c, n_c), (s_g, l_g, g_g, n_g) = (
+        out["cpu", "bfloat16"], out["cuda", "bfloat16"])
+    assert n_c == 0 and n_g == (TRAIN["n_layer"] if settings["segment_impl"]
+                                == "pallas" else 0)
+    scale = s_c.abs().amax(1, keepdim=True)
+    assert bool(((s_g - s_c).abs() <= 1e-3 * scale).all())
+    assert l_g == pytest.approx(l_c, rel=1e-4)
+    for a, b_ in zip(g_g, g_c):
+        assert float((a - b_).abs().max()) <= 2e-2 * float(b_.abs().max())
+    torch.testing.assert_close(s_g, out["cuda", "float32"][0], rtol=5e-2,
+                               atol=5e-2)
+
+
 # ------------------------------------------------- dense-hop shapes, defaults
 
 def _dense_ids(rng, e, n, kind):

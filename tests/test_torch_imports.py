@@ -44,7 +44,8 @@ NEWER_MODULES = ("redgnn_tpu_torch.graph.inductive",
                  "redgnn_tpu_torch.utils.memory",
                  "redgnn_tpu_torch.utils.linetrace",
                  "redgnn_tpu_torch.utils.hpo",
-                 "redgnn_tpu_torch.utils.viz")
+                 "redgnn_tpu_torch.utils.viz",
+                 "redgnn_tpu_torch.native")
 
 
 def _clean_env():

@@ -198,6 +198,10 @@ def test_exact_caps_match_jax(kg_dir, rng, monkeypatch):
     tn, te = tcal.per_query_counts(rowptr, tail, kg.n_ent, heads, 3)
     np.testing.assert_array_equal(tn, jn)
     np.testing.assert_array_equal(te, je)
+    # the native walker's plain reference, the chunked numpy edge walk
+    for got, want in zip(tcal.per_query_counts_numpy(
+            rowptr, tail, kg.n_ent, heads, 3), (jn, je)):
+        np.testing.assert_array_equal(got, want)
     # a batch's counts are the sum of its queries' rows
     nc, ec = tcal.simulate_hops(rowptr, tail, kg.n_ent, heads[:8], 3)
     assert nc == list(tn[:8].sum(0)) and ec == list(te[:8].sum(0))
@@ -401,7 +405,8 @@ def test_training_learns(kg_dir):
 def test_trainer_refuses_mesh_and_seeds_init(kg_dir):
     """A mesh whose data axis does not divide n_batch is refused with the
     JAX package's message, a mesh rank on another device than the KG too;
-    bfloat16 is not ported; the seed alone sets the initial weights."""
+    a bfloat16 trainer builds and its layers gather bf16 rows; the seed
+    alone sets the initial weights."""
     from redgnn_tpu.parallel.mesh import make_mesh as jmake_mesh
     from redgnn_tpu_torch.parallel.mesh import Mesh
 
@@ -417,9 +422,19 @@ def test_trainer_refuses_mesh_and_seeds_init(kg_dir):
     with pytest.raises(ValueError, match="the mesh rank on meta"):
         tloop.StaticTrainer(kg, TrainConfig(**SETTINGS), mesh=Mesh(
             2, 1, 0, torch.device("meta"), "gloo", no_groups))
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        tloop.StaticTrainer(kg, TrainConfig(**dict(SETTINGS,
-                                                   compute_dtype="bfloat16")))
+    bf = tloop.StaticTrainer(kg, TrainConfig(**dict(
+        SETTINGS, compute_dtype="bfloat16")))
+    assert bf.model_cfg.compute_dtype == "bfloat16"
+    seen = []
+    bf.model.layer_1.Ws_attn.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].detach()))
+    with torch.no_grad():
+        s, r, _, q = (torch.from_numpy(a) for a in
+                      _step_args(kg, 0, SETTINGS["n_batch"]))
+        bf.model(kg.graph, s.int(), r.int(), q, bf.train_caps)
+    hs = seen[0]  # the projection takes the bf16 rows promoted to float32
+    assert hs.dtype == torch.float32 and bool((hs != 0).any())
+    assert torch.equal(hs, hs.to(torch.bfloat16).float())
     a = tloop.StaticTrainer(kg, TrainConfig(**SETTINGS))
     b = tloop.StaticTrainer(kg, TrainConfig(**SETTINGS))
     c = tloop.StaticTrainer(kg, TrainConfig(**dict(SETTINGS, seed=7)))

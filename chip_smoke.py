@@ -7,9 +7,10 @@ hop shapes.)
 
 Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit; TF32 off.
-  2. build: compile the sorted-segment-sum kernel from csrc/ with nvcc,
+  2. build: compile the three CUDA kernels from csrc/ with nvcc (the
+     sorted-segment sum, the range sum and the small-table scatter-add),
      and the native graph walker (native/graphcore.cpp) with the host's
-     C++ compiler; its seconds are printed.
+     C++ compiler, all four at once; their seconds are printed.
   3. kernel vs plain: the kernel against its plain PyTorch version on the
      card, at the shapes of the slice's own hops (batch 50, L=3, D=48)
      plus skewed / empty / out-of-range / kmax-overflow / scalar-path
@@ -46,8 +47,9 @@ Phases (any failure raises, and the script exits non-zero):
      6a. registry defaults (dedup 'auto', segment_impl='xla', dense hops):
          Predictor serves 8 batches; the hops' schemes are printed and at
          least one must be bitmap and one dense; one batch, and one train
-         step's loss and gradients (with the packed gather's prefix-sum
-         backward and without), against the CPU; 16 train steps; a
+         step's loss and gradients (with the packed gather's range-sum
+         backward, the kernel on the card and the prefix-sum difference on
+         the CPU, and without), against the CPU; 16 train steps; a
          whole-split evaluate("valid"). The plain segment sum is
          index_add_, which adds with float atomics on a CUDA device, so
          this configuration is held to tolerances and never to equal
@@ -61,17 +63,27 @@ Phases (any failure raises, and the script exits non-zero):
          step against the CPU; launches per batch counted; two runs of 4
          steps bit-equal; ms per batch and step, idle share, peak memory.
      6c. the family-sized KG of phase 4 at registry defaults (sort, then
-         bitmap hops): one served batch and one train step (prefix-sum
+         bitmap hops): one served batch and one train step (range-sum
          backward of the packed gather) against the CPU.
   7. temporal RED-GNN on seeded id dirs of ICEWS14's sizes: 7a the
      ICEWS14_TeMP entry at its defaults (serving, one batch and one step
      against the CPU and a float64 reference, training, evaluation; the
      seeded classifier made nonnegative and scaled by 1e-6 so that the
      top-10 check compares ranks), 7b the same weights through the kernel,
-     7c the ICEWS14_forecasting entry and its kernel path. In 7a and 7c
+     7c the ICEWS14_forecasting entry and its kernel path; 7c holds its
+     default step's gradients (the packed gather's backward through the
+     range-sum kernel) against the CPU's strict backward. In 7a and 7c
      the whole test split's exact per-query counts are walked by both
      host walkers (the scipy bitmap walk and the native walker), timed
-     and held equal.
+     and held equal. 7g (in 7a and 7c): the gather primitives' backward
+     kernels (range_sum, the packed gather's; take_rows_grad, take_rows'
+     above the one-hot budget) counted over the trainer's 2 x 16 steps,
+     then at the real inputs of one differentiated served batch and one
+     training step: each call against float64 (rtol 1e-5 + 2(m-1)u
+     sum|x|), bit-equal on a second call, timed with L2 warm and flushed
+     beside its byte bound, its plain version (the prefix-sum difference;
+     index_put_) and one library call (segment_reduce; index_add_);
+     take_rows_grad also at other chunk sizes.
   8. the xERTE and SimplE baselines on 7c's dir: 8a xERTE at full width
      (emb 256-128-64-32, 3 DP steps, K 15, 40 attended edges, batch 128,
      cap factor 4) with XErteTrainer's seeded init: 8 timed forward
@@ -143,9 +155,10 @@ TRAIN_STEPS, TRAIN_CHUNK = 64, 32  # phase 5: 2 chunks of scan_chunk steps
 # a parameter's gradient, card vs CPU: |diff| <= GRAD_RTOL * |cpu| +
 # GRAD_ATOL_REL * max|cpu| (sums over ~60k edges in another order)
 GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5
-# the same with scan_src_backward=True: the packed gather's backward takes
-# differences of a float32 prefix sum over all edges of a hop, which adds
-# O(total magnitude * eps) noise in another order on each device
+# the same with scan_src_backward=True: on the CPU the packed gather's
+# backward takes differences of a float32 prefix sum over all edges of a
+# hop, which adds O(total magnitude * eps) noise (the card's range-sum
+# kernel adds each range's own terms)
 SCAN_GRAD_RTOL, SCAN_GRAD_ATOL_REL = 1e-3, 1e-4
 # phase 7: a temporal step's gradients, card vs CPU. The default path adds
 # ~10^6 messages per hop with float atomics in a new order on every run,
@@ -383,16 +396,26 @@ def log_ptxas(text: str) -> None:
 
 
 def phase_build():
+    """Build the three CUDA kernels and the native walker at once (one
+    compiler process each); returns the walker's build seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from redgnn_tpu_torch import _build
 
-    res = _build.build("segment_sum_sorted")
-    log(f"[build] segment_sum_sorted.cu -> {os.path.relpath(res['path'])} "
-        f"in {res['seconds']:.2f} s (nvcc, sm_90a)")
-    log_ptxas(res["log"])
-    host = _build.build_host("graphcore")
+    names = ("segment_sum_sorted", "range_sum", "take_rows_grad")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        host_job = pool.submit(_build.build_host, "graphcore")
+        results = list(pool.map(_build.build, names))
+        host = host_job.result()
+    for name, res in zip(names, results):
+        log(f"[build] {name}.cu -> {os.path.relpath(res['path'])} in "
+            f"{res['seconds']:.2f} s (nvcc, sm_90a)")
+        log_ptxas(res["log"])
     log(f"[build] native/graphcore.cpp -> {os.path.relpath(host['path'])} "
         f"in {host['seconds']:.2f} s ({_build._host_cxx()} "
-        f"{' '.join(_build.HOST_FLAGS)})")
+        f"{' '.join(_build.HOST_FLAGS)}); all four builds at once "
+        f"{time.perf_counter() - t0:.2f} s")
     return host["seconds"]
 
 
@@ -1389,10 +1412,11 @@ def temporal_forward(model, kg, batch, caps, exclude=None):
                  False, ekey, selfloop_slot, time_rowptr, dense)
 
 
-def cpu_twin(model):
+def cpu_twin(model, **over):
+    """``model``'s weights on the CPU, its config with ``over`` set."""
     from redgnn_tpu_torch.models.temporal import TRedGNN
 
-    cpu = TRedGNN(model.cfg, device="cpu")
+    cpu = TRedGNN(dataclasses.replace(model.cfg, **over), device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     return cpu
 
@@ -1498,10 +1522,13 @@ def train_sample(kg, b: int, seed: int = SEED):
 
 
 def temporal_step_card_vs_cpu(model, kg, kg_cpu, cfg, tag: str, rtol: float,
-                              atol_rel: float, check_grads: bool = True):
+                              atol_rel: float, check_grads: bool = True,
+                              cpu_strict: bool = False):
     """One training step's loss, aux counts and every parameter's
     gradient, card vs CPU: the same weights and batch (with leave-one-out
-    in interpolation), no dropout. The scores are held to the float64
+    in interpolation), no dropout; with ``cpu_strict`` the CPU takes the
+    strict backward (scan_src_backward=False: a plain src gather, the
+    same forward). The scores are held to the float64
     reference as in `temporal_scores_agree`, and the loss to 1e-5 relative plus twice the
     largest score difference (the NLL moves by at most that much). The
     gradients are held to ``rtol`` + ``atol_rel`` * max|grad| when
@@ -1516,8 +1543,9 @@ def temporal_step_card_vs_cpu(model, kg, kg_cpu, cfg, tag: str, rtol: float,
     excl = (kg.exclusion_slots(rows).astype(np.int32)
             if cfg.mode == "interpolation" else None)
     out = {}
-    for name, m, g in (("cpu", cpu_twin(model), kg_cpu),
-                       ("cuda", model, kg)):
+    cpu = (cpu_twin(model, scan_src_backward=False) if cpu_strict
+           else cpu_twin(model))
+    for name, m, g in (("cpu", cpu, kg_cpu), ("cuda", model, kg)):
         dev = "cpu" if name == "cpu" else "cuda"
         batch = quad_tensors(quads, dev)
         scores, aux = temporal_forward(
@@ -1727,6 +1755,254 @@ def temporal_kernel_path(trainer, pred0, queries, kg_cpu, tag: str, card):
             "train_launches": step_launches}
 
 
+# ---------------- phase 7g: the gather primitives' backwards on the card
+
+# the two kernels that replace JAX custom VJPs (no Pallas kernel: XLA
+# compositions in the JAX package)
+GATHER_KERNELS = {
+    "range_sum": {"source": "redgnn_tpu_torch/csrc/range_sum.cu",
+                  "replaces": "redgnn_tpu/ops/gather.py:174"},
+    "take_rows_grad": {"source": "redgnn_tpu_torch/csrc/take_rows_grad.cu",
+                       "replaces": "redgnn_tpu/ops/gather.py:41"},
+}
+U32 = 2.0 ** -24  # float32 unit roundoff
+
+
+def record_gather_backwards(run):
+    """[g, start, count] of every range sum (`gather_rows_packed`'s
+    backward) and [g, idx, rows] of every scatter-add (`take_rows`'
+    backward above the one-hot budget) that ``run()`` computes, in order.
+    The wrapper itself runs unchanged (it counts its own launches)."""
+    from redgnn_tpu_torch.ops import gather
+
+    sums, scatters = [], []
+
+    def recording(name, calls):
+        orig = getattr(gather, name)
+
+        def rec(g, *args):
+            calls.append([g.detach().clone(), *args])
+            setattr(gather, name, orig)  # the wrapper counts on its name
+            try:
+                return orig(g, *args)
+            finally:
+                setattr(gather, name, rec)
+        return orig, rec
+
+    patched = [(name, *recording(name, calls)) for name, calls in
+               (("range_sum", sums), ("scatter_rows_add", scatters))]
+    for name, _, rec in patched:
+        setattr(gather, name, rec)
+    try:
+        run()
+    finally:
+        for name, orig, _ in patched:
+            setattr(gather, name, orig)
+    return sums, scatters
+
+
+def sum_bound_check(got, want, s_abs, m):
+    """|got - want| <= 1e-5 |want| + 2 (m - 1) u sum|x| per cell (``want``
+    and ``s_abs`` float64; m terms in the cell's sum): the rounding bound
+    of a float32 sum in any order, against an exact one. Returns
+    max |got - want|."""
+    m = m.to(torch.float64)[:, None]
+    diff = (got.to(torch.float64) - want).abs()
+    bound = 1e-5 * want.abs() + 2.0 * torch.clamp(m - 1, min=0) * U32 * s_abs
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def range_sum_call_check(g, start, count, what: str, card):
+    """The range-sum kernel at one recorded call: against the float64
+    range sum, the same bits twice, times (L2 warm and flushed), the byte
+    bound, the plain version (the prefix-sum difference) and
+    segment_reduce."""
+    from redgnn_tpu_torch.ops.gather import (
+        range_sum,
+        range_sum_reference,
+        range_sum_scan,
+    )
+
+    got, again = range_sum(g, start, count), range_sum(g, start, count)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "two calls gave different bits"
+    want = range_sum_reference(g, start, count)
+    e, d = g.shape
+    p = start.shape[0]
+    st, ct = start.long(), count.long()
+    lo = torch.clamp(st, 0, e)
+    m = torch.maximum(torch.clamp(st + torch.clamp(ct, min=0), max=e),
+                      lo) - lo
+    err = sum_bound_check(got, want, range_sum_reference(g.abs(), start,
+                                                         count), m)
+    plain = range_sum_scan(g, start, count)
+    scale = float(want.abs().max())
+    err_plain = float((plain.double() - want).abs().max())
+    total = int(m.sum())
+    t_k = device_ms(lambda: range_sum(g, start, count))
+    t_f = flushed_ms(lambda: range_sum(g, start, count))
+    t_p = call_ms(lambda: range_sum_scan(g, start, count), rounds=2,
+                  iters=1, warmup=1)[0]
+    # the one PyTorch call for the same sums needs ranges laid end to end
+    # from slot 0 (the frontier's are)
+    tiled = bool(lo[0] == 0) and bool((lo[1:] == lo[:-1] + m[:-1]).all())
+    t_l = (call_ms(lambda: torch.segment_reduce(g[:total], "sum",
+                                                lengths=m), rounds=3,
+                   iters=5)[0] if tiled else None)
+    b_ms = (total * d * 4 + p * d * 4 + p * 2 * start.element_size()) \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"{what} range_sum E={e} D={d} P={p} ({total} slots in ranges, "
+        f"longest {int(m.max())}): kernel within rtol 1e-5 + 2(m-1)u "
+        f"sum|x| of the float64 range sum (max |diff| {err:.3g}; the "
+        f"prefix-sum difference {err_plain:.3g}, largest |sum| "
+        f"{scale:.3g}), same bits twice; kernel {t_k:.4f} ms L2 warm, "
+        f"{t_f:.4f} ms flushed; byte bound {b_ms * 1e3:.2f} us = "
+        f"{b_ms / t_k:.1%} of the warm time, {b_ms / t_f:.1%} of the "
+        f"flushed; plain (prefix-sum difference) {t_p:.4f} ms; "
+        + (f"segment_reduce {t_l:.4f} ms (eager: it synchronises)"
+           if t_l is not None else "segment_reduce not comparable")
+        + f" ({card})")
+    return {"E": e, "D": d, "P": p, "longest": int(m.max()),
+            "max_abs_err": err, "ms": t_k, "ms_l2_flushed": t_f,
+            "bound_ms": b_ms, "plain_ms": t_p, "library_ms": t_l}
+
+
+def scatter_call_check(g, idx, rows, what: str, card, chunks=False):
+    """The scatter-add kernel at one recorded call: against a float64
+    index_add_, the same bits twice, times, the byte bound, the plain
+    version (index_put_(accumulate=True)) and index_add_. ``chunks`` also
+    times the kernel at other chunk rules than the plan's 2 R."""
+    from redgnn_tpu_torch.ops import gather
+
+    plan = gather._scatter_plan(rows, g.shape[1])
+    assert plan is not None, (rows, g.shape)  # every table of the paths
+    got = gather.scatter_rows_add(g, idx, rows)
+    again = gather.scatter_rows_add(g, idx, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "two calls gave different bits"
+    e, d = g.shape
+    i64 = idx.long()
+    want = torch.zeros(rows, d, dtype=torch.float64,
+                       device="cuda").index_add_(0, i64, g.double())
+    s_abs = torch.zeros(rows, d, dtype=torch.float64,
+                        device="cuda").index_add_(0, i64, g.abs().double())
+    m = torch.bincount(i64, minlength=rows)
+    err = sum_bound_check(got, want, s_abs, m)
+    t_k = device_ms(lambda: gather.scatter_rows_add(g, idx, rows))
+    t_f = flushed_ms(lambda: gather.scatter_rows_add(g, idx, rows))
+    t_p = device_ms(lambda: torch.zeros(rows, d, device="cuda").index_put_(
+        (i64,), g, accumulate=True))
+    t_l = device_ms(lambda: torch.zeros(rows, d, device="cuda").index_add_(
+        0, idx, g))
+    tile, chunk = plan
+    n_chunks = -(-e // chunk)
+    b_ms = (e * d * 4 + e * idx.element_size() + rows * d * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    design_ms = b_ms + n_chunks * rows * d * 8 / HBM_BYTES_PER_S * 1e3
+    runs = int((idx[1:] != idx[:-1]).sum()) + 1 if e else 0
+    log(f"{what} take_rows_grad E={e} R={rows} D={d} ({runs} runs of "
+        f"equal ids, largest row {int(m.max())} ids; tile {tile}, chunk "
+        f"{chunk}, {n_chunks} chunks): kernel within rtol 1e-5 + 2(m-1)u "
+        f"sum|x| of the float64 index_add_ (max |diff| {err:.3g}), same "
+        f"bits twice; kernel {t_k:.4f} ms L2 warm, {t_f:.4f} ms flushed; "
+        f"byte bound {b_ms * 1e3:.2f} us = {b_ms / t_k:.1%} of the warm "
+        f"time ({design_ms * 1e3:.2f} us with the partial tables' round "
+        f"trip); plain (index_put_) {t_p:.4f} ms, index_add_ {t_l:.4f} ms "
+        f"({card})")
+    if chunks:
+        orig = gather._scatter_plan
+        times = {}
+        try:
+            for k in (16, 8, 4, 2, 1):
+                def plan_k(r, dim, k=k):
+                    return (orig(r, dim)[0],
+                            min(max(1 << (k * r - 1).bit_length(), 1024),
+                                65536))
+                gather._scatter_plan = plan_k
+                times[f"{plan_k(rows, d)[1]} ({k} R)"] = round(device_ms(
+                    lambda: gather.scatter_rows_add(g, idx, rows)), 4)
+        finally:
+            gather._scatter_plan = orig
+        log(f"{what} take_rows_grad at other chunk sizes, ms L2 warm: "
+            f"{times} ({card})")
+    return {"E": e, "R": rows, "D": d, "max_abs_err": err, "ms": t_k,
+            "ms_l2_flushed": t_f, "bound_ms": b_ms, "plain_ms": t_p,
+            "library_ms": t_l}
+
+
+def gather_kernels_check(trainer, pred, queries, main: dict, steps: int,
+                         tag: str, card):
+    """Phase 7g: both gather-backward kernels at the real inputs of one
+    served batch (differentiated: its NLL at the batch's answers; serving
+    itself runs no backward, so 0 launches a served batch) and of one
+    training step at the trainer's caps (no dropout), held and timed call
+    by call. ``main`` holds the launches counted over the trainer's
+    ``steps`` steps. Returns the rows and counts of both kernels."""
+    from redgnn_tpu_torch.ops.gather import range_sum, scatter_rows_add
+    from redgnn_tpu_torch.train.temporal_loop import (
+        exact_caps,
+        nll_softmax_loss,
+    )
+
+    kg, cfg, model = trainer.kg, trainer.cfg, trainer.model
+    q0 = queries[:pred.batch]
+    range_sum.launches = scatter_rows_add.launches = 0
+    pred.predict(q0[:, 0], q0[:, 1], q0[:, 3])
+    assert range_sum.launches == scatter_rows_add.launches == 0
+
+    def served():
+        batch = quad_tensors(q0, "cuda")
+        scores, _ = temporal_forward(model, kg, batch, pred.caps)
+        nll_softmax_loss(scores, batch[2], batch[4]).backward()
+
+    quads, rows = train_sample(kg, cfg.batch_size)
+    # the caps the trainer's steps run at (the split's), as in
+    # temporal_profile_steps
+    caps = trainer.caps["train"].union(exact_caps(kg, cfg, quads,
+                                                  cfg.batch_size))
+    excl = (torch.as_tensor(kg.exclusion_slots(rows).astype(np.int32),
+                            device="cuda")
+            if cfg.mode == "interpolation" else None)
+
+    def step():
+        batch = quad_tensors(quads, "cuda")
+        scores, _ = temporal_forward(model, kg, batch, caps, excl)
+        nll_softmax_loss(scores, batch[2], batch[4]).backward()
+
+    out = {}
+    for part, run in (("serve", served), ("train", step)):
+        range_sum.launches = scatter_rows_add.launches = 0
+        sums, scatters = record_gather_backwards(run)
+        model.zero_grad(set_to_none=True)
+        assert range_sum.launches == len(sums), (range_sum.launches,
+                                                 len(sums))
+        assert scatter_rows_add.launches == len(scatters)
+        what = f"{tag} {part}"
+        out.setdefault("range_sum", {})[part] = [
+            range_sum_call_check(*c, what, card) for c in sums]
+        last = len(scatters) - 1
+        out.setdefault("take_rows_grad", {})[part] = [
+            scatter_call_check(*c, what, card,
+                               chunks=part == "train" and i == last)
+            for i, c in enumerate(scatters)]
+        out["range_sum"][f"launches_per_{part}"] = len(sums)
+        out["take_rows_grad"][f"launches_per_{part}"] = len(scatters)
+        del sums, scatters
+    for name in out:
+        rows_ = out[name]["train"]
+        out[name]["launches"] = main[name]
+        log(f"{tag} {name}: {out[name]['launches_per_serve']} launches in "
+            f"a differentiated served batch (0 a served batch), "
+            f"{out[name]['launches_per_train']} a train step "
+            f"({main[name]} over the {steps} steps of the trainer's "
+            f"epochs); per train step kernel "
+            f"{sum(r['ms'] for r in rows_):.4f} ms, byte bound "
+            f"{sum(r['bound_ms'] for r in rows_):.4f} ms, plain "
+            f"{sum(r['plain_ms'] for r in rows_):.4f} ms ({card})")
+    return out
+
+
 def phase_temporal(data_dir: str, name: str, tag: str, card):
     """Phase 7a / 7c: the registry entry ``name`` on an ICEWS14-sized dir
     (loaded as the CLI loads it) at its defaults, then (7b, and within 7c)
@@ -1735,6 +2011,7 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
 
     from redgnn_tpu_torch.cli.train import load_temporal_kg
     from redgnn_tpu_torch.models.temporal import TRedGNN, temporal_hop_plan
+    from redgnn_tpu_torch.ops.gather import range_sum, scatter_rows_add
     from redgnn_tpu_torch.serve import Predictor
     from redgnn_tpu_torch.train.temporal_loop import TemporalTrainer
     from redgnn_tpu_torch.utils.config import dataset_config
@@ -1789,15 +2066,21 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
     soft_check(tag, temporal_batch_card_vs_cpu, trainer.model, kg, kg_cpu,
                pred.caps, queries[:pred.batch], tag)
     # at the defaults (scan_src_backward=True) every bitmap hop past the
-    # first differentiates hidden[src] as differences of a float32 prefix
-    # sum over the hop's edges: noise of O(u * sum|g|) over ~10^6 rows,
-    # the JAX package's design, in another order on each device. Its
-    # gradients are held on the interpolation cell (whose one bitmap hop
-    # starts from zero states) and printed on the forecasting cell; the
-    # strict backward is held on both
+    # first differentiates hidden[src] as a range sum of the gradient: on
+    # the card the range-sum kernel (each range's own terms, in a fixed
+    # order), on the CPU the JAX package's difference of a float32 prefix
+    # sum over the hop's edges (noise of O(u * sum|g|) over ~10^6 rows).
+    # So the forecasting cell, whose bitmap hops carry gradient, holds the
+    # card's default step to the CPU's strict backward; the interpolation
+    # cell's one bitmap hop starts from zero states, and its default step
+    # is held to the CPU's default step. The strict backward is held on
+    # both
+    forecasting = cfg.mode == "extrapolation"
     soft_check(tag, temporal_step_card_vs_cpu, trainer.model, kg, kg_cpu,
-               cfg, f"{tag} scan_src_backward=True:", TEMPORAL_GRAD_RTOL,
-               TEMPORAL_GRAD_ATOL_REL, cfg.mode == "interpolation")
+               cfg, f"{tag} scan_src_backward=True" + (
+                   " against the CPU's strict step:" if forecasting
+                   else ":"), TEMPORAL_GRAD_RTOL, TEMPORAL_GRAD_ATOL_REL,
+               True, forecasting)
     strict = TRedGNN(dataclasses.replace(trainer.model_cfg,
                                          scan_src_backward=False),
                      device="cuda")
@@ -1808,9 +2091,22 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
     del strict
     kernel = temporal_kernel_path(trainer, pred, queries, kg_cpu,
                                   "[7b]" if tag == "[7a]" else tag, card)
+    # the main path of the gather backwards' kernels: the trainer's two
+    # epochs, counted
+    range_sum.launches = scatter_rows_add.launches = 0
     step_ms, train_peak = temporal_train_check(trainer, tag, card)
+    main = {"range_sum": range_sum.launches,
+            "take_rows_grad": scatter_rows_add.launches}
+    steps = 2 * cfg.max_train_batches
+    log(f"{tag} kernel launches over the {steps} train steps at the "
+        f"defaults: range_sum {main['range_sum']}, take_rows_grad "
+        f"{main['take_rows_grad']}")
+    assert main["take_rows_grad"] > 0, main
+    assert main["range_sum"] > 0 or not forecasting, main
     temporal_profile_steps(trainer, card)
     temporal_eval_check(trainer, tag, card)
+    kernel["gather"] = gather_kernels_check(trainer, pred, queries, main,
+                                            steps, tag, card)
     kernel.update(serve_ms=float(np.mean(times)), step_ms=step_ms,
                   walk_s=walk_s, walks=walks, serve_peak=peak,
                   train_peak=train_peak)
@@ -3034,7 +3330,27 @@ def main() -> int:
            for k in ("serve", "train") for r in part[k]]
         + [r["max_abs_err"] for part in kernel["mesh"] for r in part["rows"]]
         + [r["max_abs_err"] for r in kernel["bf16"]["rows"]])
-    log(json.dumps({"kernels": [kernel]}))
+    entries = [kernel]
+    gathers = [part["gather"] for part in kernel["temporal"].values()]
+    g7c = kernel["temporal"]["ICEWS14_forecasting"]["gather"]
+    for kname, where in GATHER_KERNELS.items():
+        rows = g7c[kname]["train"]  # one forecasting train step's calls
+
+        def total(key, rows=rows):
+            vals = [r[key] for r in rows]
+            return None if None in vals else sum(vals)
+
+        entries.append({
+            "name": kname, "route": "cuda", **where,
+            "launches": g7c[kname]["launches"],
+            "max_abs_err": max([0.0] + [
+                r["max_abs_err"] for part in gathers
+                for k in ("serve", "train") for r in part[kname][k]]),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"), "bound_by": "bytes",
+            "library_ms": total("library_ms")})
+    log(json.dumps({"kernels": entries}))
+    assert name == torch.cuda.get_device_name(0), name
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

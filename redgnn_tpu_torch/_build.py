@@ -107,3 +107,36 @@ def build_host(name: str) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and dlopen the library of ``csrc/<name>.cu``."""
     return ctypes.CDLL(build(name)["path"])
+
+
+_ENTRIES: dict = {}
+
+
+def entry(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu`` as a ctypes
+    function returning int, its library built and loaded at first use."""
+    if (name, symbol) not in _ENTRIES:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[name, symbol] = fn
+    return _ENTRIES[name, symbol]
+
+
+def launch(fn, args, tensor, what: str) -> None:
+    """Call ``fn(*args, stream)`` with the current stream of ``tensor``'s
+    CUDA device, that device current (a kernel launches on the current
+    device). Raises when the entry point returns a CUDA error: a failed
+    launch, or arguments it refuses."""
+    import torch
+
+    index = tensor.get_device()
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed or was refused: "
+                           f"cudaError {err}")

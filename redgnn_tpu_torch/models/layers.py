@@ -150,8 +150,9 @@ class RelAttnLayer(nn.Module):
                 x[start:start + chunk] for x in (src, dst, rel, batch, valid))
         if frontier.src_values is not None and not sharded:
             # h_src was fetched inside the frontier's metadata gather,
-            # whose backward is a scatter-free range difference of the
-            # gradient's prefix sum (ops/gather.gather_rows_packed)
+            # whose backward is a scatter-free range sum of the gradient
+            # (ops/gather.gather_rows_packed: the exact kernel on a CUDA
+            # device, a prefix-sum difference on the CPU)
             hs = frontier.src_values.to(self.cdt)          # (E, D)
         else:
             # The frontier gives every padding edge the last frontier slot

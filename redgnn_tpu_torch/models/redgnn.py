@@ -63,9 +63,10 @@ class ModelConfig:
     # node-dedup scheme per hop: 'sort', 'bitmap' or 'auto' (_resolve_dedup)
     dedup_impl: str = "auto"
     # bitmap hops fetch hidden[src] inside the frontier's metadata gather
-    # and differentiate it as a range difference of the gradient's prefix
-    # sum (ops/gather.gather_rows_packed): gradient noise O(total * eps);
-    # set False for strict gradient comparisons
+    # and differentiate it as a range sum of the gradient
+    # (ops/gather.gather_rows_packed): exact on a CUDA device (the range-sum
+    # kernel); on the CPU a difference of the prefix sum, with noise
+    # O(total * eps) there alone; set False for strict CPU comparisons
     scan_src_backward: bool = True
     # dense-mode hops once a hop's edge cap reaches dense_switch * b * |E|
     # (needs the graph's tail-sorted view, DeviceGraph.from_csr)

@@ -136,8 +136,9 @@ class TemporalModelConfig:
     remat: bool = False
     dedup_impl: str = "bitmap"  # 'sort' | 'bitmap' | 'auto' (_resolve_dedup)
     # bitmap hops fetch hidden[src] inside the frontier's metadata gather
-    # (prefix-sum backward, ops/gather.gather_rows_packed); set False for
-    # strict gradient comparisons
+    # (range-sum backward, ops/gather.gather_rows_packed: the exact kernel
+    # on a CUDA device, a prefix-sum difference with O(total * eps) noise
+    # on the CPU); set False for strict CPU gradient comparisons
     scan_src_backward: bool = True
     mxu_gather_backward: bool = True  # take_rows (one-hot matmul backward)
     edge_dropout: float = 0.0  # random per-hop edge drop during training
@@ -433,8 +434,9 @@ class TRedGNN(nn.Module):
         """One hop over a frontier's edge list (`temporal.py:326-392`)."""
         cfg = self.cfg
         if src_vals is not None:
-            # h_src came with the frontier's metadata gather (prefix-sum
-            # backward)
+            # h_src came with the frontier's metadata gather (range-sum
+            # backward: the kernel on a CUDA device, a prefix-sum
+            # difference on the CPU)
             hs = src_vals
         else:
             # padding edges all carry the last frontier slot as src; spread

@@ -32,6 +32,8 @@ from typing import NamedTuple
 
 import torch
 
+from redgnn_tpu_torch import _build
+
 CHUNK = 1024
 BN = 512
 # Segments a block owns: the kernel's kSegs (csrc/segment_sum_sorted.cu),
@@ -39,9 +41,6 @@ BN = 512
 # serving hops (time_kernel_variants.py): 16 is as fast as or faster than
 # 4, 8, 32 and 64 there.
 SEGS_PER_BLOCK = 16
-
-_LIB = None
-
 
 class LaunchPlan(NamedTuple):
     grid: int    # blocks; block b owns segments [16 b, 16 (b + 1))
@@ -57,21 +56,6 @@ def _launch_plan(n_seg: int, dim: int, data_ptr: int) -> LaunchPlan:
     grid = -(-n_seg // SEGS_PER_BLOCK)
     vec = dim % 4 == 0 and data_ptr % 16 == 0
     return LaunchPlan(grid=grid, vec=vec)
-
-
-def _kernel():
-    """The ctypes handle of the built kernel library (built at first use)."""
-    global _LIB
-    if _LIB is None:
-        from redgnn_tpu_torch import _build
-
-        lib = _build.load("segment_sum_sorted")
-        fn = lib.segment_sum_sorted_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB = fn
-    return _LIB
 
 
 def _block_limits(segment_ids: torch.Tensor, num_segments: int,
@@ -155,17 +139,10 @@ def _launch(data: torch.Tensor, segment_ids: torch.Tensor,
             None if limit is None else limit.data_ptr(), out.data_ptr(),
             n_edges, dim, num_segments, bn,
             int(_launch_plan(num_segments, dim, ptr).vec))
-    fn = _kernel()
-    index = data.get_device()
-    stream = torch.cuda.current_stream(index).cuda_stream
-    if index == torch.cuda.current_device():
-        err = fn(*args, stream)
-    else:  # the kernel launches on the current device
-        with torch.cuda.device(index):
-            err = fn(*args, stream)
-    if err != 0:  # a failed launch, or arguments the C entry point refuses
-        raise RuntimeError(f"segment_sum_sorted kernel launch failed or was "
-                           f"refused ({n_edges} edges): cudaError {err}")
+    fn = _build.entry("segment_sum_sorted", "segment_sum_sorted_f32",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    _build.launch(fn, args, data, f"segment_sum_sorted ({n_edges} edges)")
     segment_sum_sorted_checked.launches += 1
     return out
 

@@ -37,6 +37,8 @@ class TrainConfig:
     segment_impl: str = "xla"
     compute_dtype: str = "float32"
     dedup_impl: str = "auto"  # 'sort' | 'bitmap' | 'auto' (models/redgnn.py)
+    # range-sum hidden[src] backward of bitmap hops: the exact kernel on a
+    # CUDA device, a prefix-sum difference (O(total * eps) noise) on the CPU
     scan_src_backward: bool = True
     dense_hops: bool = True    # batch-shared hops once frontiers saturate
     dense_switch: float = 0.25
@@ -144,7 +146,9 @@ class TemporalTrainConfig:
     seed: int = 1234
     # implementation choices, same names and defaults as the JAX package
     segment_impl: str = "xla"
-    scan_src_backward: bool = True  # prefix-sum hidden[src] backward
+    # range-sum hidden[src] backward: the exact kernel on a CUDA device, a
+    # prefix-sum difference (O(total * eps) noise) on the CPU
+    scan_src_backward: bool = True
     dense_hops: bool = True    # batch-shared hops once frontiers saturate
     dense_switch: float = 0.25
     cap_headroom: float = 1.2

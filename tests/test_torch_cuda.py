@@ -1,6 +1,8 @@
-"""Card tests of the port: the CUDA kernel and its backward against the
-plain version, a small model and a train step on the card against the CPU,
-and run-to-run determinism of training.
+"""Card tests of the port: the CUDA kernels (the sorted-segment sum and its
+backward, the gather primitives' backwards: the range sum and the
+small-table scatter-add) against their plain versions, a small model and a
+train step on the card against the CPU, and run-to-run determinism of
+training.
 
 These need an NVIDIA GPU and skip without one. They import neither JAX
 nor the conftest fixtures, so they also run where JAX is not installed:
@@ -15,6 +17,7 @@ import torch
 from redgnn_tpu_torch.graph.calibrate import FrontierCaps
 from redgnn_tpu_torch.graph.kg import DeviceGraph, StaticKG, build_csr
 from redgnn_tpu_torch.models.redgnn import ModelConfig, RedGNN
+from redgnn_tpu_torch.ops.gather import range_sum
 from redgnn_tpu_torch.ops.segment_sorted import (
     segment_sum_sorted,
     segment_sum_sorted_checked,
@@ -208,9 +211,10 @@ def test_kernel_backward_boundaries(card, kind, e, n):
 
 @pytest.mark.parametrize("idx_shape", [(53504,), (20, 7)])
 def test_take_rows_over_budget_backward(card, monkeypatch, idx_shape):
-    """Over the one-hot budget the backward is a scatter-add by
-    index_put_(accumulate=True): the same gradient as the one-hot product
-    (another summation order), and the same bits on a second run."""
+    """Over the one-hot budget the backward is a scatter-add through the
+    kernel (`scatter_rows_add`, csrc/take_rows_grad.cu): the same gradient
+    as the one-hot product (another summation order), and the same bits
+    on a second run."""
     from redgnn_tpu_torch.ops import gather
 
     rng = np.random.default_rng(5)
@@ -226,7 +230,9 @@ def test_take_rows_over_budget_backward(card, monkeypatch, idx_shape):
 
     onehot = grad()
     monkeypatch.setattr(gather, "_ONEHOT_BUDGET", 0)
+    before = gather.scatter_rows_add.launches
     over, again = grad(), grad()
+    assert gather.scatter_rows_add.launches == before + 2
     assert torch.equal(over, again)
     torch.testing.assert_close(over, onehot, rtol=1e-4,
                                atol=1e-5 * float(onehot.abs().max()))
@@ -234,6 +240,182 @@ def test_take_rows_over_budget_backward(card, monkeypatch, idx_shape):
     (cpu[idx.long()] * w).sum().backward()
     torch.testing.assert_close(over.cpu(), cpu.grad, rtol=1e-4,
                                atol=1e-5 * float(cpu.grad.abs().max()))
+
+
+U = 2.0 ** -24
+
+
+def _sum_bound(got, want, s_abs, m):
+    """|got - want| <= 1e-5 |want| + 2 (m - 1) u sum|x| for sums of m
+    float32 terms (``want`` and ``s_abs`` float64): the rounding bound of a
+    recursive float32 sum in any order, against an exact one."""
+    m = m.to(torch.float64)[:, None]
+    bound = 1e-5 * want.abs() + 2 * torch.clamp(m - 1, min=0) * U * s_abs
+    diff = (got.to(torch.float64) - want).abs()
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+
+
+def _csr_ranges(rng, p, e, cap):
+    """(start, count) of P ranges laid end to end from 0, Zipf lengths up
+    to ``cap``, a tenth of them empty, cut at E."""
+    deg = np.minimum(rng.zipf(1.6, p), cap)
+    deg[rng.random(p) < 0.1] = 0
+    deg = np.diff(np.minimum(np.cumsum(deg), e), prepend=0)
+    return np.cumsum(deg) - deg, deg
+
+
+def _range_sum_check(g, start, count):
+    from redgnn_tpu_torch.ops import gather
+
+    before = gather.range_sum.launches
+    got = gather.range_sum(g, start, count)
+    again = gather.range_sum(g, start, count)
+    torch.cuda.synchronize()
+    assert gather.range_sum.launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    want = gather.range_sum_reference(g, start, count)
+    s_abs = gather.range_sum_reference(g.abs(), start, count)
+    e = g.shape[0]
+    st, ct = start.long(), count.long()
+    lo = torch.clamp(st, 0, e)
+    m = torch.maximum(torch.clamp(st + torch.clamp(ct, min=0), max=e), lo) - lo
+    _sum_bound(got, want, s_abs, m)
+    return got
+
+
+@pytest.mark.parametrize("e,p", [(36_864, 3_000), (590_592, 42_000),
+                                 (1_683_200, 120_000)])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+def test_range_sum_kernel_hop_shapes(card, e, p, index_dtype):
+    """The range-sum kernel at the forecasting model's hop shapes (E slots
+    of D = 30, the scalar-load path) against the float64 range sum, and
+    the same bits on a second call."""
+    rng = np.random.default_rng(7)
+    start, count = _csr_ranges(rng, p, e, 2000)
+    g = torch.from_numpy(rng.normal(size=(e, 30)).astype(np.float32))
+    _range_sum_check(g.to(card), torch.from_numpy(start).to(card, index_dtype),
+                     torch.from_numpy(count).to(card, index_dtype))
+
+
+@pytest.mark.parametrize("d", [30, 33, 48, 20, 200])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_range_sum_kernel_contract_cases(card, d, misaligned):
+    """Empty ranges, ranges cut by E, ranges at or past E, a hub of 10^5
+    slots, at odd and vector widths, 16-byte aligned or not."""
+    rng = np.random.default_rng(8)
+    e = 300_000
+    start = np.array([0, 5, 5, 100, 100_100, 250_000, 299_990, 310_000,
+                      299_999, 0, 300_000], np.int64)
+    count = np.array([5, 0, 95, 100_000, 10, 0, 50, 5, 1, 0, 3], np.int64)
+    buf = torch.from_numpy(
+        rng.normal(size=e * d + 1).astype(np.float32)).to(card)
+    g = buf[1:].view(e, d) if misaligned else buf[:-1].view(e, d)
+    got = _range_sum_check(g, torch.from_numpy(start).to(card),
+                           torch.from_numpy(count).to(card))
+    assert bool((got[[1, 5, 7, 9, 10]] == 0).all())
+    # multiples of 1/8: every partial sum exact, so the bits of float64
+    x = torch.from_numpy(
+        (rng.integers(-64, 64, size=(e, d)) / 8).astype(np.float32)).to(card)
+    from redgnn_tpu_torch.ops import gather
+
+    st, ct = (torch.from_numpy(a).to(card) for a in (start, count))
+    assert torch.equal(gather.range_sum(x, st, ct).double(),
+                       gather.range_sum_reference(x, st, ct))
+
+
+def test_gather_rows_packed_backward_launches_the_kernel(card):
+    """Through autograd on the card, the packed gather's backward is the
+    range-sum kernel: one launch, the float64 range sum's values."""
+    from redgnn_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(9)
+    p, d = 5_000, 30
+    start, count = _csr_ranges(rng, p, 10 ** 9, 300)
+    e = int(count.sum()) + 100
+    idx = np.concatenate([np.repeat(np.arange(p), count),
+                          np.full(100, p - 1)]).astype(np.int32)
+    vals = torch.from_numpy(rng.normal(size=(p, d)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32)).to(card)
+    w[-100:] = 0  # the padded tail carries zero gradient
+    v = vals.to(card).requires_grad_()
+    st, ct = torch.from_numpy(start).to(card), torch.from_numpy(count).to(card)
+    _, rows = gather.gather_rows_packed(
+        torch.zeros(p, 1, dtype=torch.int32, device=card), v,
+        torch.from_numpy(idx).to(card), st, ct)
+    before = gather.range_sum.launches
+    (rows * w).sum().backward()
+    torch.cuda.synchronize()
+    assert gather.range_sum.launches == before + 1
+    m = torch.from_numpy(count).to(card)
+    _sum_bound(v.grad, gather.range_sum_reference(w, st, ct),
+               gather.range_sum_reference(w.abs(), st, ct), m)
+
+
+@pytest.mark.parametrize("r", [16, 32, 462, 475])
+@pytest.mark.parametrize("d", [20, 30, 48])
+def test_scatter_kernel_tables(card, r, d):
+    """The scatter-add kernel at the relation tables (462, 475 rows) and
+    batch tables (16, 32) of the paths, random and sorted ids, int32 and
+    int64, against a float64 index_add_; the same bits on a second call."""
+    from redgnn_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(10)
+    assert gather._scatter_plan(r, d) is not None
+    for e, sort, index_dtype in ((200_000, False, torch.int64),
+                                 (70_001, True, torch.int32)):
+        ids = rng.integers(0, r, e)
+        ids = np.sort(ids) if sort else ids
+        idx = torch.from_numpy(ids).to(card, index_dtype)
+        g = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32))
+        g = g.to(card)
+        before = gather.scatter_rows_add.launches
+        got = gather.scatter_rows_add(g, idx, r)
+        again = gather.scatter_rows_add(g, idx, r)
+        torch.cuda.synchronize()
+        assert gather.scatter_rows_add.launches == before + 2
+        assert torch.equal(got, again)
+        want = torch.zeros(r, d, dtype=torch.float64, device=card).index_add_(
+            0, idx.long(), g.double())
+        s_abs = torch.zeros(r, d, dtype=torch.float64,
+                            device=card).index_add_(0, idx.long(),
+                                                    g.abs().double())
+        _sum_bound(got, want, s_abs, torch.bincount(idx.long(), minlength=r))
+
+
+def test_scatter_kernel_column_tiles(card):
+    """A table too wide for shared memory in one piece (1000 x 200 fp32 is
+    800 KB) takes 32-column tiles over the grid's second dimension."""
+    from redgnn_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(11)
+    r, d, e = 1000, 200, 100_000
+    assert gather._scatter_plan(r, d)[0] == 32
+    idx = torch.from_numpy(rng.integers(0, r, e)).to(card)
+    # multiples of 1/8: every order of summation gives the same bits
+    g = torch.from_numpy(
+        (rng.integers(-64, 64, size=(e, d)) / 8).astype(np.float32)).to(card)
+    got = gather.scatter_rows_add(g, idx, r)
+    want = torch.zeros(r, d, device=card).index_add_(0, idx, g)
+    assert torch.equal(got, want)
+    assert torch.equal(gather.scatter_rows_add(g[:0], idx[:0], r),
+                       torch.zeros(r, d, device=card))
+
+
+def test_scatter_routes_large_tables_to_index_put(card):
+    """A table whose rows alone overflow shared memory at 32 columns (the
+    rule of `_scatter_plan`) takes index_put_: no launch, its values."""
+    from redgnn_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(12)
+    r, d, e = 2_000, 48, 50_000
+    assert gather._scatter_plan(r, d) is None
+    idx = torch.from_numpy(rng.integers(0, r, e)).to(card)
+    g = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32)).to(card)
+    before = gather.scatter_rows_add.launches
+    got = gather.scatter_rows_add(g, idx, r)
+    assert gather.scatter_rows_add.launches == before
+    assert torch.equal(got, torch.zeros(r, d, device=card).index_put_(
+        (idx,), g, accumulate=True))
 
 
 def _write_kg(path, rng, n_ent=40, n_rel=4):
@@ -455,8 +637,10 @@ def test_registry_default_step_on_card_matches_cpu(card, tmp_path,
                                                    scan_src_backward):
     """dedup 'auto' and dense hops (sparse hops bitmap under 'xla', sort
     under 'pallas', then a dense hop): loss, aux and gradients of one step
-    on the card against the CPU. The prefix-sum backward of the packed
-    gather gets a looser bound (its noise is O(total * eps))."""
+    on the card against the CPU. With scan_src_backward the packed
+    gather's backward is the range-sum kernel on the card and a prefix-sum
+    difference on the CPU, whose noise (O(total * eps)) gets the looser
+    bound."""
     d = _write_kg(tmp_path, np.random.default_rng(0))
     cfg = TrainConfig(**DEFAULTS, dropout=0.0, segment_impl=segment_impl,
                       scan_src_backward=scan_src_backward)
@@ -478,7 +662,12 @@ def test_registry_default_step_on_card_matches_cpu(card, tmp_path,
         assert launched == (4 if (dev, segment_impl) == ("cuda", "pallas")
                             else 0)
         loss = softmax_ce_loss(scores, batch[:, 2], qmask)
+        before = range_sum.launches
         grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+        # the second sparse hop (bitmap under 'xla') differentiates
+        # hidden[src] through the range-sum kernel on the card
+        assert (range_sum.launches - before > 0) == (
+            dev == "cuda" and scan_src_backward and segment_impl == "xla")
         out[dev] = (loss.item(), [g.cpu() for g in grads],
                     {k: v.cpu() for k, v in aux.items()})
     c, g = out["cpu"], out["cuda"]

@@ -3,7 +3,8 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (time_kernel_variants.py times other builds of the kernel at the same
-hop shapes.)
+hop shapes.) ``python3 chip_smoke.py --phase 7g [--tree DIR]`` runs phase
+7g alone, with this tree's or DIR's script and package.
 
 Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit; TF32 off.
@@ -80,10 +81,14 @@ Phases (any failure raises, and the script exits non-zero):
      above the one-hot budget) counted over the trainer's 2 x 16 steps,
      then at the real inputs of one differentiated served batch and one
      training step: each call against float64 (rtol 1e-5 + 2(m-1)u
-     sum|x|), bit-equal on a second call, timed with L2 warm and flushed
-     beside its byte bound, its plain version (the prefix-sum difference;
-     index_put_) and one library call (segment_reduce; index_add_);
-     take_rows_grad also at other chunk sizes.
+     sum|x|), bit-equal to the plain model of its summation order
+     (range_sum_model, scatter_rows_add_model) and on a second call, its
+     launch plan printed, timed with L2 warm and flushed beside its byte
+     bound, its plain version (the prefix-sum difference; index_put_) and
+     one library call (segment_reduce; index_add_, which take_rows_grad
+     must not be slower than); the first train call of each kernel also at
+     other shares (slots a warp of the share pass sums) and under
+     torch.profiler (each pass's device time).
   8. the xERTE and SimplE baselines on 7c's dir: 8a xERTE at full width
      (emb 256-128-64-32, 3 DP steps, K 15, 40 attended edges, batch 128,
      cap factor 4) with XErteTrainer's seeded init: 8 timed forward
@@ -1813,13 +1818,17 @@ def sum_bound_check(got, want, s_abs, m):
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def range_sum_call_check(g, start, count, what: str, card):
+def range_sum_call_check(g, start, count, what: str, card, sweep=False):
     """The range-sum kernel at one recorded call: against the float64
-    range sum, the same bits twice, times (L2 warm and flushed), the byte
-    bound, the plain version (the prefix-sum difference) and
-    segment_reduce."""
+    range sum, bit-equal to the plain model of its summation order
+    (`range_sum_model`) and on a second call, its share plan, times (L2
+    warm and flushed), the byte bound, the plain version (the prefix-sum
+    difference) and segment_reduce. ``sweep`` also times the kernel at
+    other shares than the plan's (`share_slots`)."""
+    from redgnn_tpu_torch.ops import gather
     from redgnn_tpu_torch.ops.gather import (
         range_sum,
+        range_sum_model,
         range_sum_reference,
         range_sum_scan,
     )
@@ -1827,9 +1836,12 @@ def range_sum_call_check(g, start, count, what: str, card):
     got, again = range_sum(g, start, count), range_sum(g, start, count)
     torch.cuda.synchronize()
     assert torch.equal(got, again), "two calls gave different bits"
+    assert torch.equal(got, range_sum_model(g, start, count)), \
+        "the kernel left the order of its model"
     want = range_sum_reference(g, start, count)
     e, d = g.shape
     p = start.shape[0]
+    plan = gather._range_plan(e, p, d)
     st, ct = start.long(), count.long()
     lo = torch.clamp(st, 0, e)
     m = torch.maximum(torch.clamp(st + torch.clamp(ct, min=0), max=e),
@@ -1853,35 +1865,66 @@ def range_sum_call_check(g, start, count, what: str, card):
     b_ms = (total * d * 4 + p * d * 4 + p * 2 * start.element_size()) \
         / HBM_BYTES_PER_S * 1e3
     log(f"{what} range_sum E={e} D={d} P={p} ({total} slots in ranges, "
-        f"longest {int(m.max())}): kernel within rtol 1e-5 + 2(m-1)u "
+        f"longest {int(m.max())}; laid end to end: {tiled}; plan: "
+        f"{plan.blocks} shares of {gather.SHARE_WARPS} x {plan.share} "
+        f"slots, {plan.tiles} scan tiles): kernel within rtol 1e-5 + 2(m-1)u "
         f"sum|x| of the float64 range sum (max |diff| {err:.3g}; the "
         f"prefix-sum difference {err_plain:.3g}, largest |sum| "
-        f"{scale:.3g}), same bits twice; kernel {t_k:.4f} ms L2 warm, "
-        f"{t_f:.4f} ms flushed; byte bound {b_ms * 1e3:.2f} us = "
-        f"{b_ms / t_k:.1%} of the warm time, {b_ms / t_f:.1%} of the "
-        f"flushed; plain (prefix-sum difference) {t_p:.4f} ms; "
+        f"{scale:.3g}), bit-equal to its model and twice; kernel "
+        f"{t_k:.4f} ms L2 warm, {t_f:.4f} ms flushed; byte bound "
+        f"{b_ms * 1e3:.2f} us = {b_ms / t_k:.1%} of the warm time, "
+        f"{b_ms / t_f:.1%} of the flushed; plain (prefix-sum difference) "
+        f"{t_p:.4f} ms; "
         + (f"segment_reduce {t_l:.4f} ms (eager: it synchronises)"
            if t_l is not None else "segment_reduce not comparable")
         + f" ({card})")
+    if sweep:
+        log(f"{what} range_sum at other shares (slots a warp), ms L2 warm: "
+            f"{share_sweep(lambda: range_sum(g, start, count))} ({card})")
+        log(f"{what} range_sum's passes, 10 calls:")
+        profile_calls(lambda: [range_sum(g, start, count) for _ in range(10)],
+                      10, "call", card)
     return {"E": e, "D": d, "P": p, "longest": int(m.max()),
-            "max_abs_err": err, "ms": t_k, "ms_l2_flushed": t_f,
-            "bound_ms": b_ms, "plain_ms": t_p, "library_ms": t_l}
+            "share": plan.share, "max_abs_err": err, "ms": t_k,
+            "ms_l2_flushed": t_f, "bound_ms": b_ms, "plain_ms": t_p,
+            "library_ms": t_l}
 
 
-def scatter_call_check(g, idx, rows, what: str, card, chunks=False):
-    """The scatter-add kernel at one recorded call: against a float64
-    index_add_, the same bits twice, times, the byte bound, the plain
-    version (index_put_(accumulate=True)) and index_add_. ``chunks`` also
-    times the kernel at other chunk rules than the plan's 2 R."""
+def share_sweep(call) -> dict:
+    """ms L2 warm of ``call`` with the share pass's warps taking 64 to
+    512 slots each (the plans' rule, `share_slots`, replaced for the
+    call; every share gives the float32 sums in its own fixed order)."""
     from redgnn_tpu_torch.ops import gather
 
-    plan = gather._scatter_plan(rows, g.shape[1])
+    orig = gather.share_slots
+    times = {}
+    try:
+        for share in (64, 128, 256, 512):
+            gather.share_slots = lambda n, share=share: share
+            times[share] = round(device_ms(call), 4)
+    finally:
+        gather.share_slots = orig
+    return times
+
+
+def scatter_call_check(g, idx, rows, what: str, card, sweep=False):
+    """The scatter-add kernel at one recorded call: against a float64
+    index_add_, bit-equal to the plain model of its summation order
+    (`scatter_rows_add_model`) and on a second call, its plan, times, the
+    byte bound and the design's own floor, the plain version
+    (index_put_(accumulate=True)) and index_add_. ``sweep`` also times
+    the kernel at other shares than the plan's."""
+    from redgnn_tpu_torch.ops import gather
+
+    e, d = g.shape
+    plan = gather._scatter_plan(e, rows, d)
     assert plan is not None, (rows, g.shape)  # every table of the paths
     got = gather.scatter_rows_add(g, idx, rows)
     again = gather.scatter_rows_add(g, idx, rows)
     torch.cuda.synchronize()
     assert torch.equal(got, again), "two calls gave different bits"
-    e, d = g.shape
+    assert torch.equal(got, gather.scatter_rows_add_model(g, idx, rows)), \
+        "the kernel left the order of its model"
     i64 = idx.long()
     want = torch.zeros(rows, d, dtype=torch.float64,
                        device="cuda").index_add_(0, i64, g.double())
@@ -1891,43 +1934,40 @@ def scatter_call_check(g, idx, rows, what: str, card, chunks=False):
     err = sum_bound_check(got, want, s_abs, m)
     t_k = device_ms(lambda: gather.scatter_rows_add(g, idx, rows))
     t_f = flushed_ms(lambda: gather.scatter_rows_add(g, idx, rows))
-    t_p = device_ms(lambda: torch.zeros(rows, d, device="cuda").index_put_(
-        (i64,), g, accumulate=True))
+    t_p = call_ms(lambda: torch.zeros(rows, d, device="cuda").index_put_(
+        (i64,), g, accumulate=True), rounds=2, iters=1, warmup=1)[0]
     t_l = device_ms(lambda: torch.zeros(rows, d, device="cuda").index_add_(
         0, idx, g))
-    tile, chunk = plan
-    n_chunks = -(-e // chunk)
-    b_ms = (e * d * 4 + e * idx.element_size() + rows * d * 4) \
+    ib = idx.element_size()
+    b_ms = (e * d * 4 + e * ib + rows * d * 4) / HBM_BYTES_PER_S * 1e3
+    # the design moves g once, the ids twice, the sorted (slot, row) list
+    # once each way and the table once
+    design_ms = (e * (d * 4 + 2 * ib + 16) + rows * d * 4) \
         / HBM_BYTES_PER_S * 1e3
-    design_ms = b_ms + n_chunks * rows * d * 8 / HBM_BYTES_PER_S * 1e3
     runs = int((idx[1:] != idx[:-1]).sum()) + 1 if e else 0
     log(f"{what} take_rows_grad E={e} R={rows} D={d} ({runs} runs of "
-        f"equal ids, largest row {int(m.max())} ids; tile {tile}, chunk "
-        f"{chunk}, {n_chunks} chunks): kernel within rtol 1e-5 + 2(m-1)u "
-        f"sum|x| of the float64 index_add_ (max |diff| {err:.3g}), same "
-        f"bits twice; kernel {t_k:.4f} ms L2 warm, {t_f:.4f} ms flushed; "
-        f"byte bound {b_ms * 1e3:.2f} us = {b_ms / t_k:.1%} of the warm "
-        f"time ({design_ms * 1e3:.2f} us with the partial tables' round "
-        f"trip); plain (index_put_) {t_p:.4f} ms, index_add_ {t_l:.4f} ms "
-        f"({card})")
-    if chunks:
-        orig = gather._scatter_plan
-        times = {}
-        try:
-            for k in (16, 8, 4, 2, 1):
-                def plan_k(r, dim, k=k):
-                    return (orig(r, dim)[0],
-                            min(max(1 << (k * r - 1).bit_length(), 1024),
-                                65536))
-                gather._scatter_plan = plan_k
-                times[f"{plan_k(rows, d)[1]} ({k} R)"] = round(device_ms(
-                    lambda: gather.scatter_rows_add(g, idx, rows)), 4)
-        finally:
-            gather._scatter_plan = orig
-        log(f"{what} take_rows_grad at other chunk sizes, ms L2 warm: "
-            f"{times} ({card})")
-    return {"E": e, "R": rows, "D": d, "max_abs_err": err, "ms": t_k,
-            "ms_l2_flushed": t_f, "bound_ms": b_ms, "plain_ms": t_p,
+        f"equal ids, largest row {int(m.max())} ids; plan: {plan.chunks} "
+        f"sort chunks of {plan.chunk}, {plan.blocks} shares of "
+        f"{gather.SHARE_WARPS} x {plan.share} slots, tile {plan.tile}): "
+        f"kernel within rtol 1e-5 + 2(m-1)u sum|x| of the float64 "
+        f"index_add_ (max |diff| {err:.3g}), bit-equal to its model and "
+        f"twice; kernel "
+        f"{t_k:.4f} ms L2 warm, {t_f:.4f} ms flushed; byte bound "
+        f"{b_ms * 1e3:.2f} us = {b_ms / t_k:.1%} of the warm time "
+        f"({design_ms * 1e3:.2f} us, {design_ms / t_k:.1%}, with the "
+        f"design's sort traffic); plain (index_put_) {t_p:.4f} ms, "
+        f"index_add_ {t_l:.4f} ms ({card})")
+    assert t_k <= t_l, f"slower than index_add_: {t_k:.4f} > {t_l:.4f} ms"
+    if sweep:
+        times = share_sweep(lambda: gather.scatter_rows_add(g, idx, rows))
+        log(f"{what} take_rows_grad at other shares (slots a warp), ms L2 "
+            f"warm: {times} ({card})")
+        log(f"{what} take_rows_grad's passes, 10 calls:")
+        profile_calls(lambda: [gather.scatter_rows_add(g, idx, rows)
+                               for _ in range(10)], 10, "call", card)
+    return {"E": e, "R": rows, "D": d, "share": plan.share,
+            "max_abs_err": err, "ms": t_k, "ms_l2_flushed": t_f,
+            "bound_ms": b_ms, "design_ms": design_ms, "plain_ms": t_p,
             "library_ms": t_l}
 
 
@@ -1979,12 +2019,14 @@ def gather_kernels_check(trainer, pred, queries, main: dict, steps: int,
                                                  len(sums))
         assert scatter_rows_add.launches == len(scatters)
         what = f"{tag} {part}"
-        out.setdefault("range_sum", {})[part] = [
-            range_sum_call_check(*c, what, card) for c in sums]
-        last = len(scatters) - 1
+        out.setdefault("range_sum", {})
+        out["range_sum"][part] = [
+            range_sum_call_check(*c, what, card,
+                                 sweep=part == "train" and i == 0)
+            for i, c in enumerate(sums)]
         out.setdefault("take_rows_grad", {})[part] = [
             scatter_call_check(*c, what, card,
-                               chunks=part == "train" and i == last)
+                               sweep=part == "train" and i == 0)
             for i, c in enumerate(scatters)]
         out["range_sum"][f"launches_per_{part}"] = len(sums)
         out["take_rows_grad"][f"launches_per_{part}"] = len(scatters)
@@ -1997,9 +2039,56 @@ def gather_kernels_check(trainer, pred, queries, main: dict, steps: int,
             f"{out[name]['launches_per_train']} a train step "
             f"({main[name]} over the {steps} steps of the trainer's "
             f"epochs); per train step kernel "
-            f"{sum(r['ms'] for r in rows_):.4f} ms, byte bound "
-            f"{sum(r['bound_ms'] for r in rows_):.4f} ms, plain "
+            f"{sum(r['ms'] for r in rows_):.4f} ms L2 warm, "
+            f"{sum(r['ms_l2_flushed'] for r in rows_):.4f} ms flushed, "
+            f"byte bound {sum(r['bound_ms'] for r in rows_):.4f} ms, plain "
             f"{sum(r['plain_ms'] for r in rows_):.4f} ms ({card})")
+    return out
+
+
+GATHER_ALONE_STEPS = 2  # train steps that count the launches in --phase 7g
+
+
+def phase_gather_alone(mod, card):
+    """Phase 7g alone (``--phase 7g``): 7a's and 7c's dirs, trainers and
+    Predictors as phase 7 builds them, ``GATHER_ALONE_STEPS`` train steps
+    through train_epoch (the launches' main path), then ``mod``'s
+    gather_kernels_check at the same calls. ``mod`` is this script or, with
+    ``--tree DIR``, DIR's chip_smoke.py running DIR's package: the parent
+    tree's kernels at the same calls, on the same card. Returns the
+    per-call times of both kernels."""
+    from redgnn_tpu_torch.cli.train import load_temporal_kg
+    from redgnn_tpu_torch.ops.gather import range_sum, scatter_rows_add
+    from redgnn_tpu_torch.serve import Predictor
+    from redgnn_tpu_torch.train.temporal_loop import TemporalTrainer
+    from redgnn_tpu_torch.utils.config import dataset_config
+
+    out = {}
+    for entry, forecasting, tag in (("ICEWS14_TeMP", False, "[7a]"),
+                                    ("ICEWS14_forecasting", True, "[7c]")):
+        with tempfile.TemporaryDirectory() as tmp:
+            mod.write_icews14_sized(tmp, forecasting)
+            cfg = dataset_config("temporal", entry,
+                                 max_train_batches=GATHER_ALONE_STEPS,
+                                 max_eval_batches=1)
+            trainer = TemporalTrainer(load_temporal_kg(tmp, cfg, "cuda"), cfg)
+            if not forecasting:  # as phase 7a scales it
+                with torch.no_grad():
+                    trainer.model.classifier_w.abs_().mul_(1e-6)
+            pred = Predictor.from_trainer(trainer, split="test", top_k=10)
+            queries = trainer.kg.splits["test"][:pred.batch]
+            range_sum.launches = scatter_rows_add.launches = 0
+            trainer.train_epoch(0)
+            main = {"range_sum": range_sum.launches,
+                    "take_rows_grad": scatter_rows_add.launches}
+            res = mod.gather_kernels_check(trainer, pred, queries, main,
+                                           GATHER_ALONE_STEPS, tag, card)
+        out[entry] = {
+            name: {part: [{k: r[k] for k in ("ms", "ms_l2_flushed",
+                                               "bound_ms")}
+                          for r in res[name][part]]
+                   for part in ("serve", "train")}
+            for name in res}
     return out
 
 
@@ -3261,11 +3350,39 @@ def phase_bf16_umls(data_dir: str, card):
             "f32_step_ms": out["float32"]["step_ms"]}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phase", choices=["7g"],
+                    help="run phase 7g alone (after phases 1-2); prints its "
+                    "times as one JSON line, and no 'ok' line")
+    ap.add_argument("--tree", help="with --phase 7g: a checkout of another "
+                    "commit (e.g. the parent, unpacked by git archive); its "
+                    "own chip_smoke.py and package run the phase")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script "
               "measures the port on an NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.phase == "7g":
+        mod = sys.modules[__name__]
+        if args.tree:
+            import importlib
+
+            sys.path.insert(0, os.path.abspath(args.tree))
+            sys.modules.pop("chip_smoke", None)
+            mod = importlib.import_module("chip_smoke")
+            assert os.path.dirname(os.path.abspath(mod.__file__)) == \
+                os.path.abspath(args.tree), mod.__file__
+        _, smi = mod.phase_device()
+        mod.phase_build()
+        times = phase_gather_alone(mod, smi)
+        log(json.dumps({"phase": "7g", "tree": args.tree or ".",
+                        "card": smi, "gather": times}))
+        return 0
+    elif args.tree:
+        ap.error("--tree needs --phase 7g")
     t_start = time.perf_counter()
     last = [t_start]
 

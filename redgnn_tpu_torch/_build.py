@@ -5,11 +5,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 (git-ignored), then loaded with ``ctypes``. The host-side graph walker
 ``native/<name>.cpp`` is built the same way by the host's C++ compiler
 (``g++``, else ``c++``; ``nvcc`` needs one too). A library's file name
-carries a hash of its source, so an edited source is rebuilt and never
-confused with a stale library; it is compiled to a temporary name that
-holds the process id and moved into place with ``os.replace`` (dlopen
-caches by inode, a half-written file is never loaded, and processes that
-build at once do not clash).
+carries a hash of its source and the headers beside it (``*.cuh``), so
+an edited source is rebuilt and never confused with a stale library; it
+is compiled to a temporary name that holds the process id and moved into
+place with ``os.replace`` (dlopen caches by inode, a half-written file is
+never loaded, and processes that build at once do not clash).
 """
 
 from __future__ import annotations
@@ -52,13 +52,20 @@ def _host_cxx() -> str:
 
 
 def _library_path(src: str, name: str) -> str:
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    # the hash covers the headers beside the source (csrc/*.cuh) too
+    h = hashlib.sha1()
+    folder = os.path.dirname(src)
+    for path in [src] + sorted(os.path.join(folder, f)
+                               for f in os.listdir(folder)
+                               if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` is built to (hash of its source)."""
+    """Where ``csrc/<name>.cu`` is built to (hash of its source and the
+    headers beside it)."""
     return _library_path(os.path.join(CSRC_DIR, f"{name}.cu"), name)
 
 

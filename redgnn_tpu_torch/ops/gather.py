@@ -5,9 +5,10 @@ scatter-add of one row per edge. ``take_rows`` keeps the forward a plain
 gather and computes the backward as ``one_hot(idx).T @ grad`` while the
 one-hot fits a modest buffer, as the JAX package does. Larger tables take
 a scatter-add, `scatter_rows_add`: on a CUDA device the hand-written
-kernel ``csrc/take_rows_grad.cu`` (per-block partial tables in shared
-memory, added in a fixed order: no float atomics, the same bits on every
-run) for every table that `_scatter_plan` admits by shape, else
+kernel ``csrc/take_rows_grad.cu`` (a stable counting sort of the ids,
+then slot-balanced sums of the sorted runs, added in a fixed order: no
+float atomics, the same bits on every run) for every table that
+`_scatter_plan` admits by shape, else
 ``index_put_(accumulate=True)``, which sorts the indices and adds equal
 ones in order; on the CPU ``index_put_``. The product is exact only in
 full fp32: with TF32 matmuls it would round the gradient to 10 mantissa
@@ -25,7 +26,9 @@ gradients carry O(total magnitude * eps) noise: fine for training, not
 for a strict gradient comparison (``scan_src_backward=False`` there).
 ``take_rows_sorted``'s backward is that prefix-sum difference on every
 device. `range_sum_reference` (float64) is the yardstick the kernel is
-held to; only tests and the card's smoke run call it.
+held to; `range_sum_model` and `scatter_rows_add_model` repeat the two
+kernels' summation order in plain PyTorch. Only tests and the card's
+smoke run call those three.
 
 bfloat16 compute (``compute_dtype="bfloat16"``) gathers rows of bf16
 copies of float32 tensors. The backward of such a gather adds the bf16
@@ -40,6 +43,7 @@ float32 and rounds once, as the JAX package's one-hot product does.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -50,36 +54,162 @@ from redgnn_tpu_torch.ops.segment import _segment_sum_scan
 # 32M elements = 128 MB, the JAX package's budget.
 _ONEHOT_BUDGET = 32 * 1024 * 1024
 
-# The scatter kernel's partial table lives in shared memory: at most
-# this many bytes of it (csrc/take_rows_grad.cu: kMaxTableBytes), at most
-# SCATTER_MAX_COLS columns a tile (kMaxCols)
-SCATTER_MAX_TABLE_BYTES = 200 * 1024
-SCATTER_MAX_COLS = 128
+# Both gather backwards end in the share pass of csrc/share_sum.cuh: a
+# block of SHARE_WARPS warps sums SHARE_WARPS * share consecutive positions
+# of a list of slots laid out in runs of equal row, each warp `share` of
+# them; the fix-up pass adds the block partials of a row that crosses
+# blocks in groups of SHARE_FIX_GROUP blocks. A block sums at most
+# SHARE_MAX_COLS columns (wider rows take column tiles).
+SHARE_WARPS = 8
+SHARE_FIX_GROUP = 16
+SHARE_MAX_COLS = 128
+SHARE_TARGET_BLOCKS = 1024
+# csrc/take_rows_grad.cu: the sort passes' ids a block (kChunk) and the
+# table rows its count tables take (kMaxRows)
+SCATTER_CHUNK = 4096
+SCATTER_MAX_ROWS = 4096
+# csrc/range_sum.cu: rows a block of the scan passes takes (kScanRows)
+RANGE_SCAN_ROWS = 512
 
 
-def _scatter_plan(rows: int, dim: int) -> tuple[int, int] | None:
-    """(tile, chunk) of the scatter kernel for a (rows, dim) table, or
-    None: the table then goes to ``index_put_``.
+class ScatterPlan(NamedTuple):
+    tile: int    # columns a block of the share pass sums
+    chunk: int   # ids a block of the sort passes reads
+    share: int   # sorted slots a warp of the share pass sums
+    chunks: int  # blocks of the sort passes
+    blocks: int  # blocks of the share and fix-up passes
 
-    The rule, by shape: the kernel takes a table when ``rows *
-    min(dim, 32) * 4`` bytes fit ``SCATTER_MAX_TABLE_BYTES`` (200 KB of
-    shared memory: up to 1,600 rows at 32 or more columns). ``tile`` is
-    the widest of ``min(dim, 128)`` and the multiples of 32 below it
-    whose ``rows * tile * 4`` bytes fit (a wider table takes
-    ``ceil(dim / tile)`` column tiles); ``chunk``, the ids a block sums,
-    is the power of two at or above ``2 * rows`` within [1024, 65536]: a
-    function of the table alone, so the order of the sums, and the bits,
-    do not depend on the card."""
-    if rows <= 0 or dim <= 0:
+
+class RangePlan(NamedTuple):
+    tile: int    # columns a block of the share pass sums
+    share: int   # list positions a warp of the share pass sums
+    tiles: int   # blocks of the scan passes
+    blocks: int  # blocks of the share and fix-up passes
+
+
+def share_slots(n: int) -> int:
+    """Positions a warp of the share pass sums, for a list of ``n``: the
+    power of two at or below ``n / (SHARE_WARPS * SHARE_TARGET_BLOCKS)``
+    within [64, 1024], so that a list of up to 8.4M positions takes about
+    SHARE_TARGET_BLOCKS blocks or more (several waves on the card) and a
+    warp at least 64 positions. A function of ``n`` alone."""
+    q = max(n // (SHARE_WARPS * SHARE_TARGET_BLOCKS), 1)
+    return min(max(1 << (q.bit_length() - 1), 64), 1024)
+
+
+def _blocks(n: int, share: int) -> int:
+    return -(-n // (SHARE_WARPS * share))
+
+
+def _scatter_plan(n: int, rows: int, dim: int) -> ScatterPlan | None:
+    """The scatter kernel's launch plan for ``n`` ids into a (rows, dim)
+    table, or None: the table then goes to ``index_put_``.
+
+    The rule, by shape: the kernel takes tables of 1 to SCATTER_MAX_ROWS
+    rows (its count tables; the table itself never sits in shared
+    memory) at any width (column tiles of up to SHARE_MAX_COLS) and up to
+    2^31 - 1 ids. Every number is a function of (n, rows, dim) alone, so
+    the order of the sums, and the bits, do not depend on the card."""
+    if rows <= 0 or dim <= 0 or rows > SCATTER_MAX_ROWS or n >= 2 ** 31:
         return None
-    top = min(dim, SCATTER_MAX_COLS)
-    for tile in [top] + list(range((top - 1) // 32 * 32, 0, -32)):
-        if rows * tile * 4 <= SCATTER_MAX_TABLE_BYTES:
-            break
-    else:
-        return None
-    chunk = min(max(1 << (2 * rows - 1).bit_length(), 1024), 65536)
-    return tile, chunk
+    share = share_slots(n)
+    return ScatterPlan(min(dim, SHARE_MAX_COLS), SCATTER_CHUNK, share,
+                       -(-n // SCATTER_CHUNK), _blocks(n, share))
+
+
+def _range_plan(n: int, p: int, dim: int) -> RangePlan:
+    """The range-sum kernel's launch plan for ``p`` ranges over ``n``
+    slots of width ``dim``: a function of (n, p, dim) alone. The share
+    pass's grid is sized by ``n``: ranges that do not overlap list at most
+    ``n`` slots; a longer list takes wider shares on the device
+    (csrc/share_sum.cuh: effective_share)."""
+    share = share_slots(n)
+    return RangePlan(min(max(dim, 1), SHARE_MAX_COLS), share,
+                     -(-p // RANGE_SCAN_ROWS), _blocks(n, share))
+
+
+def _copy_bytes(g: torch.Tensor, tile: int) -> int:
+    """Bytes of a piece of a row-by-row copy into shared memory: 16, 8 or
+    4, as g's row width, the tile and g's alignment allow."""
+    d, ptr = g.shape[1], g.data_ptr()
+    for wb in (16, 8):
+        if d % (wb // 4) == 0 and tile % (wb // 4) == 0 and ptr % wb == 0:
+            return wb
+    return 4
+
+
+def _fold_runs(x: torch.Tensor, key: torch.Tensor, group: torch.Tensor):
+    """Sum each run of equal (group, key) of ``x``'s rows from 0, left to
+    right, one float32 add at a time. Returns the runs' (key, group,
+    sum)."""
+    n = key.shape[0]
+    if n == 0:
+        return key, group, x[:0]
+    new = torch.ones(n, dtype=torch.bool, device=x.device)
+    new[1:] = (key[1:] != key[:-1]) | (group[1:] != group[:-1])
+    starts = torch.nonzero(new).squeeze(1)
+    length = torch.diff(starts, append=starts.new_tensor([n]))
+    acc = x.new_zeros((starts.shape[0],) + x.shape[1:])
+    for t in range(int(length.max())):
+        live = torch.nonzero(length > t).squeeze(1)
+        acc[live] = acc[live] + x[starts[live] + t]
+    return key[starts], group[starts], acc
+
+
+def _share_order_sum(x: torch.Tensor, key: torch.Tensor, share: int,
+                     rows: int) -> torch.Tensor:
+    """The share pass's sums, in its order, in plain PyTorch: row r of
+    the result adds the rows of ``x`` (the list, in order) whose ``key``
+    is r (keys non-decreasing): each warp's runs (``share`` positions a
+    warp), then a row's warp sums within a block (SHARE_WARPS warps), then
+    its block sums within a group of SHARE_FIX_GROUP blocks, then the
+    groups' sums; every sum from 0, left to right. Float adds are exact
+    IEEE operations on both devices, so this gives the kernels' bits."""
+    pos = torch.arange(key.shape[0], device=x.device)
+    k, grp, s = _fold_runs(x, key, pos // share)
+    k, grp, s = _fold_runs(s, k, grp // SHARE_WARPS)
+    k, grp, s = _fold_runs(s, k, grp // SHARE_FIX_GROUP)
+    k, _, s = _fold_runs(s, k, torch.zeros_like(grp))
+    out = x.new_zeros((rows,) + x.shape[1:])
+    out[k] = s
+    return out
+
+
+def scatter_rows_add_model(g: torch.Tensor, idx: torch.Tensor, rows: int,
+                           share: int | None = None) -> torch.Tensor:
+    """`scatter_rows_add` in the kernel's order, in plain PyTorch (tests
+    and the card's smoke run): the stable sort of the valid ids, then
+    `_share_order_sum` at the plan's share (or ``share``)."""
+    i = idx.reshape(-1).long()
+    slots = torch.nonzero((i >= 0) & (i < rows)).squeeze(1)
+    keys, order = torch.sort(i[slots], stable=True)
+    if share is None:
+        share = share_slots(g.shape[0])
+    return _share_order_sum(g[slots[order]].to(torch.float32), keys, share,
+                            rows)
+
+
+def range_sum_model(g: torch.Tensor, start: torch.Tensor,
+                    count: torch.Tensor,
+                    share: int | None = None) -> torch.Tensor:
+    """`range_sum` in the kernel's order, in plain PyTorch (tests and the
+    card's smoke run): the clipped ranges' slots laid end to end, then
+    `_share_order_sum` at the plan's share (or ``share``), widened as the
+    kernel widens it for a list longer than its grid."""
+    _range_check(g, start, count)
+    e, p = g.shape[0], start.shape[0]
+    lo, length = _clipped(start, count, e)
+    if share is None:
+        share = share_slots(e)
+    total = int(length.sum())
+    cap, block = max(_blocks(e, share), 1), SHARE_WARPS * share
+    shares = -(-total // block)
+    if shares > cap:
+        share *= -(-shares // cap)
+    owner = torch.repeat_interleave(torch.arange(p, device=g.device), length)
+    first = torch.cumsum(length, 0) - length
+    slot = lo[owner] + torch.arange(total, device=g.device) - first[owner]
+    return _share_order_sum(g[slot].to(torch.float32), owner, share, p)
 
 
 def scatter_rows_add(g: torch.Tensor, idx: torch.Tensor,
@@ -98,27 +228,45 @@ def scatter_rows_add(g: torch.Tensor, idx: torch.Tensor,
                          f"got {tuple(g.shape)} and {tuple(idx.shape)}")
     if g.dtype != torch.float32:
         raise TypeError(f"scatter_rows_add sums float32, got {g.dtype}")
-    plan = _scatter_plan(rows, g.shape[1])
+    n, d = g.shape
+    plan = _scatter_plan(n, rows, d)
     if g.device.type == "cpu" or plan is None:
-        return g.new_zeros((rows, g.shape[1])).index_put_(
+        return g.new_zeros((rows, d)).index_put_(
             (idx.long(),), g, accumulate=True)
-    tile, chunk = plan
+    out, _ = _scatter_launch(g, idx, rows, plan)
+    return out
+
+
+def _scatter_launch(g: torch.Tensor, idx: torch.Tensor, rows: int,
+                    plan: ScatterPlan):
+    """Launch csrc/take_rows_grad.cu on CUDA tensors: (out, sorted), the
+    (rows, D) sums and the kernel's sorted list, (E, 2) int32 (slot, row)
+    pairs of the valid ids in its first rows (the card tests read it)."""
     if idx.dtype not in (torch.int32, torch.int64):
         idx = idx.long()
     g, idx = g.contiguous(), idx.contiguous()
     n, d = g.shape
     out = g.new_empty((rows, d))
-    part = g.new_empty((-(-n // chunk), rows, d))
+    # int32 scratch: the sorted (slot, row) pairs first (8-byte aligned),
+    # then the count table, the totals, the row starts and the tails
+    sizes = [2 * n, rows * plan.chunks, rows, rows + 1, plan.blocks]
+    ints = torch.empty(sum(sizes), dtype=torch.int32, device=g.device)
+    ptrs, at = [], 0
+    for size in sizes:
+        ptrs.append(ints.data_ptr() + 4 * at)
+        at += size
+    bpart = g.new_empty((plan.blocks, 2, d))
     fn = _build.entry("take_rows_grad", "take_rows_grad_f32",
-                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
-                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                      + [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                      + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     _build.launch(fn, (g.data_ptr(), idx.data_ptr(),
-                       int(idx.dtype == torch.int64), part.data_ptr(),
-                       out.data_ptr(), n, rows, d, tile, chunk), g,
+                       int(idx.dtype == torch.int64), *ptrs, bpart.data_ptr(),
+                       out.data_ptr(), n, rows, d, plan.tile, plan.chunk,
+                       plan.share, _copy_bytes(g, plan.tile)), g,
                   f"take_rows_grad ({n} ids, table {rows} x {d})")
     scatter_rows_add.launches += 1
-    return out
+    return out, ints[:2 * n].view(n, 2)
 
 
 scatter_rows_add.launches = 0
@@ -261,6 +409,14 @@ def range_sum_scan(g: torch.Tensor, start: torch.Tensor,
     return pe - ps
 
 
+def _clipped(start: torch.Tensor, count: torch.Tensor, e: int):
+    """(lo, length) of each range clipped to [0, e), int64."""
+    s, c = start.long(), count.long()
+    lo = torch.clamp(s, 0, e)
+    hi = torch.maximum(torch.clamp(s + torch.clamp(c, min=0), max=e), lo)
+    return lo, hi - lo
+
+
 def range_sum_reference(g: torch.Tensor, start: torch.Tensor,
                         count: torch.Tensor) -> torch.Tensor:
     """`range_sum` in float64, with no prefix cancellation: every slot of
@@ -270,10 +426,7 @@ def range_sum_reference(g: torch.Tensor, start: torch.Tensor,
     _range_check(g, start, count)
     e, d = g.shape
     p = start.shape[0]
-    s, c = start.long(), count.long()
-    lo = torch.clamp(s, 0, e)
-    hi = torch.maximum(torch.clamp(s + torch.clamp(c, min=0), max=e), lo)
-    length = hi - lo
+    lo, length = _clipped(start, count, e)
     owner = torch.repeat_interleave(torch.arange(p, device=g.device), length)
     first = torch.cumsum(length, 0) - length
     slot = lo[owner] + torch.arange(owner.shape[0], device=g.device) \
@@ -292,8 +445,8 @@ def range_sum(g: torch.Tensor, start: torch.Tensor,
     g: (E, D) float; start / count: (P,) int32 or int64. Returns (P, D)
     float32. A CUDA tensor launches the kernel (``csrc/range_sum.cu``,
     counted in ``range_sum.launches``), which adds each range's own rows
-    in a fixed order; a CPU tensor takes `range_sum_scan`, the JAX
-    package's prefix-sum difference."""
+    in a fixed order (`range_sum_model`); a CPU tensor takes
+    `range_sum_scan`, the JAX package's prefix-sum difference."""
     if g.device.type == "cpu":
         return range_sum_scan(g, start, count)
     _range_check(g, start, count)
@@ -304,12 +457,24 @@ def range_sum(g: torch.Tensor, start: torch.Tensor,
     out = g.new_empty((p, d))
     if p == 0 or d == 0:
         return out
-    vec = d % 4 == 0 and g.data_ptr() % 16 == 0
+    plan = _range_plan(e, p, d)
+    # int64 scratch: the tiles' sums, the row starts in the list and the
+    # clipped starts
+    longs = torch.empty(plan.tiles + 2 * p + 1, dtype=torch.int64,
+                        device=g.device)
+    # int32 scratch: the shares' tail rows, each warp's first row
+    ints = torch.empty((SHARE_WARPS + 1) * plan.blocks, dtype=torch.int32,
+                       device=g.device)
+    bpart = g.new_empty((plan.blocks, 2, d))
+    base, ibase = longs.data_ptr(), ints.data_ptr()
     fn = _build.entry("range_sum", "range_sum_f32",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                      + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                      [ctypes.c_void_p] * 10 + [ctypes.c_longlong]
+                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     _build.launch(fn, (g.data_ptr(), start.data_ptr(), count.data_ptr(),
-                       out.data_ptr(), e, d, p, int(vec)), g,
+                       out.data_ptr(), base, base + 8 * plan.tiles,
+                       base + 8 * (plan.tiles + p + 1), ibase,
+                       ibase + 4 * plan.blocks, bpart.data_ptr(), e, d, p,
+                       plan.tile, plan.share, _copy_bytes(g, plan.tile)), g,
                   f"range_sum ({e} slots, {p} rows)")
     range_sum.launches += 1
     return out

@@ -280,16 +280,20 @@ def _range_sum_check(g, start, count):
     lo = torch.clamp(st, 0, e)
     m = torch.maximum(torch.clamp(st + torch.clamp(ct, min=0), max=e), lo) - lo
     _sum_bound(got, want, s_abs, m)
+    # the kernel adds in the order its plain model repeats, bit for bit
+    assert torch.equal(got, gather.range_sum_model(g, start, count))
     return got
 
 
 @pytest.mark.parametrize("e,p", [(36_864, 3_000), (590_592, 42_000),
-                                 (1_683_200, 120_000)])
+                                 (1_683_200, 120_000), (657_664, 45_568),
+                                 (246_272, 6_400)])
 @pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
 def test_range_sum_kernel_hop_shapes(card, e, p, index_dtype):
     """The range-sum kernel at the forecasting model's hop shapes (E slots
-    of D = 30, the scalar-load path) against the float64 range sum, and
-    the same bits on a second call."""
+    of D = 30; ranges laid end to end, the contiguous path) against the
+    float64 range sum and its order's model, and the same bits on a second
+    call."""
     rng = np.random.default_rng(7)
     start, count = _csr_ranges(rng, p, e, 2000)
     g = torch.from_numpy(rng.normal(size=(e, 30)).astype(np.float32))
@@ -321,6 +325,33 @@ def test_range_sum_kernel_contract_cases(card, d, misaligned):
     st, ct = (torch.from_numpy(a).to(card) for a in (start, count))
     assert torch.equal(gather.range_sum(x, st, ct).double(),
                        gather.range_sum_reference(x, st, ct))
+
+
+@pytest.mark.parametrize("kind", ["overlapping", "hub", "longer_than_grid"])
+def test_range_sum_kernel_general_ranges(card, kind):
+    """Ranges that are not laid end to end (unordered, overlapping, cut by
+    E, past it, negative starts) at the forecasting model's first training
+    call (E = 657,664, D = 30): the row-by-row path. A hub of 10^5 slots
+    crosses 200 shares; ranges whose slots add up past E take wider shares
+    on the device. Each against float64, its model, and twice."""
+    rng = np.random.default_rng(13)
+    e, d = 657_664, 30
+    if kind == "overlapping":
+        p = 45_568
+        start = rng.integers(-100, e + 100, p)
+        count = rng.integers(-5, 40, p)
+    elif kind == "hub":
+        start, count = _csr_ranges(rng, 45_568, e, 40)
+        count[7] = 100_000
+        start = np.cumsum(count) - count
+    else:
+        start = rng.integers(0, e // 2, 64)
+        count = np.full(64, e // 2)
+    g = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32)).to(card)
+    got = _range_sum_check(g, torch.from_numpy(start).to(card),
+                           torch.from_numpy(count).to(card))
+    assert bool((got[torch.from_numpy((count <= 0) | (start >= e))] == 0)
+                .all())
 
 
 def test_gather_rows_packed_backward_launches_the_kernel(card):
@@ -360,7 +391,7 @@ def test_scatter_kernel_tables(card, r, d):
     from redgnn_tpu_torch.ops import gather
 
     rng = np.random.default_rng(10)
-    assert gather._scatter_plan(r, d) is not None
+    assert gather._scatter_plan(200_000, r, d) is not None
     for e, sort, index_dtype in ((200_000, False, torch.int64),
                                  (70_001, True, torch.int32)):
         ids = rng.integers(0, r, e)
@@ -380,16 +411,67 @@ def test_scatter_kernel_tables(card, r, d):
                             device=card).index_add_(0, idx.long(),
                                                     g.abs().double())
         _sum_bound(got, want, s_abs, torch.bincount(idx.long(), minlength=r))
+        assert torch.equal(got, gather.scatter_rows_add_model(g, idx, r))
+
+
+def _scatter_ids(rng, kind, e, r):
+    if kind == "one_row":
+        return np.full(e, r // 2)
+    if kind == "sorted_batch":
+        return np.sort(rng.integers(0, r, e))
+    if kind == "dropped":
+        return rng.integers(-50, r + 50, e)
+    # "skewed": one relation holds 70% of the ids, as at a training hop
+    return np.where(rng.random(e) < 0.7, 17, rng.integers(0, r, e))
+
+
+@pytest.mark.parametrize("kind,r", [("skewed", 462), ("one_row", 462),
+                                    ("sorted_batch", 32), ("one_row", 1),
+                                    ("dropped", 462)])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+def test_scatter_kernel_contract_cases(card, kind, r, index_dtype):
+    """At the forecasting model's first training call (E = 657,664, D =
+    30): skewed ids, all ids on one row, sorted batch ids, R = 1, ids
+    outside [0, R) dropped. The kernel's sorted list is the stable sort of
+    the valid ids (torch.sort(stable=True)); the sums hold to float64
+    within the bound, equal their order's model and a second call; the
+    counter moves by the calls made."""
+    from redgnn_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(14)
+    e, d = 657_664, 30
+    ids = torch.from_numpy(_scatter_ids(rng, kind, e, r)).to(card,
+                                                            index_dtype)
+    g = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32)).to(card)
+    plan = gather._scatter_plan(e, r, d)
+    before = gather.scatter_rows_add.launches
+    got, srt = gather._scatter_launch(g, ids, r, plan)
+    again = gather.scatter_rows_add(g, ids, r)
+    torch.cuda.synchronize()
+    assert gather.scatter_rows_add.launches == before + 2
+    assert torch.equal(got, again)
+    i = ids.long()
+    ok = (i >= 0) & (i < r)
+    slots = torch.nonzero(ok).squeeze(1)
+    keys, order = torch.sort(i[slots], stable=True)
+    n_ok = int(ok.sum())
+    assert torch.equal(srt[:n_ok, 0].long(), slots[order])
+    assert torch.equal(srt[:n_ok, 1].long(), keys)
+    want = torch.zeros(r, d, dtype=torch.float64, device=card).index_add_(
+        0, i[ok], g[ok].double())
+    s_abs = torch.zeros_like(want).index_add_(0, i[ok], g[ok].abs().double())
+    _sum_bound(got, want, s_abs, torch.bincount(i[ok], minlength=r))
+    assert torch.equal(got, gather.scatter_rows_add_model(g, ids, r))
 
 
 def test_scatter_kernel_column_tiles(card):
-    """A table too wide for shared memory in one piece (1000 x 200 fp32 is
-    800 KB) takes 32-column tiles over the grid's second dimension."""
+    """A table wider than a tile (1000 x 200) takes 128-column tiles over
+    the grid's second dimension."""
     from redgnn_tpu_torch.ops import gather
 
     rng = np.random.default_rng(11)
     r, d, e = 1000, 200, 100_000
-    assert gather._scatter_plan(r, d)[0] == 32
+    assert gather._scatter_plan(e, r, d).tile == 128
     idx = torch.from_numpy(rng.integers(0, r, e)).to(card)
     # multiples of 1/8: every order of summation gives the same bits
     g = torch.from_numpy(
@@ -402,13 +484,13 @@ def test_scatter_kernel_column_tiles(card):
 
 
 def test_scatter_routes_large_tables_to_index_put(card):
-    """A table whose rows alone overflow shared memory at 32 columns (the
-    rule of `_scatter_plan`) takes index_put_: no launch, its values."""
+    """A table of more rows than the kernel's count tables take (the rule
+    of `_scatter_plan`) takes index_put_: no launch, its values."""
     from redgnn_tpu_torch.ops import gather
 
     rng = np.random.default_rng(12)
-    r, d, e = 2_000, 48, 50_000
-    assert gather._scatter_plan(r, d) is None
+    r, d, e = 5_000, 48, 50_000
+    assert gather._scatter_plan(e, r, d) is None
     idx = torch.from_numpy(rng.integers(0, r, e)).to(card)
     g = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32)).to(card)
     before = gather.scatter_rows_add.launches
@@ -715,7 +797,23 @@ def test_temporal_kernel_path_on_card_matches_cpu(card, tmp_path, mode):
     """TRedGNN with sort dedup and the kernel (a sparse hop, then dense
     hops in interpolation; windowed sparse hops in extrapolation) on the
     card against the CPU: scores, aux and every parameter's gradient; the
-    kernel launches once per sparse hop and twice per dense hop."""
+    kernel launches once per sparse hop and twice per dense hop.
+
+    The gradients are held to a float64 referee: the same step on the CPU
+    with the same weights in float64 (float64 as the default dtype, as
+    chip_smoke.py's reference_scores computes it; plain sums and plain
+    gathers, which change no value). Card and CPU float32 both lie off it
+    by the rounding of sums taken in other orders, and a gradient that
+    cancels to ~1e-8 (terms near 1) differs between them by more than a
+    tolerance on its own size; so each parameter's card error may be at
+    most twice the CPU's own error plus 1e-6 of its largest float64
+    gradient. A parameter whose float64 gradient is zero (to 1e-12 of the
+    step's largest: the classifier's bias, whose gradient is a sum of
+    softmax residues that cancel exactly) has no size of its own: both
+    float32 values are rounding residue, and its 1e-6 is taken of the
+    step's largest float64 gradient."""
+    import dataclasses
+
     from redgnn_tpu_torch.graph.temporal import TemporalKG
     from redgnn_tpu_torch.models.temporal import (
         TemporalModelConfig,
@@ -747,19 +845,28 @@ def test_temporal_kernel_path_on_card_matches_cpu(card, tmp_path, mode):
     if not ex:
         assert plan[0] == "sort" and "dense" in plan, plan
     out = {}
-    for dev in ("cpu", "cuda"):
-        model = TRedGNN(cfg, device=dev)
+
+    def step(model, dev):
         g = kgs[dev]
         b = [torch.as_tensor(quads[:, j].astype(np.int32), device=dev)
              for j in range(4)]
         qmask = torch.ones(8, dtype=torch.bool, device=dev)
         graph, etime, ekey, sl, trp, dense = g.model_args()
-        before = segment_sum_sorted_checked.launches
         scores, aux = model(graph, etime, b[0], b[1], b[3], qmask, caps,
                             None, False, ekey, sl, trp, dense)
+        nll_softmax_loss(scores, b[2], qmask).backward()
+        return scores, aux
+
+    weights = None
+    for dev in ("cpu", "cuda"):
+        model = TRedGNN(cfg, device=dev)
+        if weights is None:
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        before = segment_sum_sorted_checked.launches
+        scores, aux = step(model, dev)
         if dev == "cuda":
             assert segment_sum_sorted_checked.launches - before == launches
-        nll_softmax_loss(scores, b[2], qmask).backward()
         out[dev] = (scores.detach().cpu(),
                     {k: v.cpu() for k, v in aux.items()},
                     {n: p.grad.cpu() for n, p in model.named_parameters()
@@ -769,10 +876,31 @@ def test_temporal_kernel_path_on_card_matches_cpu(card, tmp_path, mode):
     for k in ("num_nodes", "num_edges", "edge_overflow", "node_overflow"):
         assert torch.equal(a_g[k], a_c[k]), k
     assert g_g.keys() == g_c.keys()
+    ref = TRedGNN(dataclasses.replace(cfg, segment_impl="xla",
+                                      scan_src_backward=False,
+                                      mxu_gather_backward=False),
+                  device="cpu").double()
+    ref.load_state_dict({k: v.double() for k, v in weights.items()})
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        step(ref, "cpu")
+    finally:
+        torch.set_default_dtype(default)
+    g_ref = {n: p.grad for n, p in ref.named_parameters()
+             if p.grad is not None}
+    assert g_ref.keys() == g_c.keys()
+    step_scale = max(float(v.abs().max()) for v in g_ref.values())
     for n in g_c:
-        scale = float(g_c[n].abs().max())
-        torch.testing.assert_close(g_g[n], g_c[n], rtol=1e-4,
-                                   atol=1e-5 * scale + 1e-9)
+        want = g_ref[n]
+        assert want.dtype == torch.float64, n
+        err_card = float((g_g[n].double() - want).abs().max())
+        err_cpu = float((g_c[n].double() - want).abs().max())
+        scale = float(want.abs().max())
+        if scale <= 1e-12 * step_scale:  # an exact zero: no size of its own
+            scale = step_scale
+        bound = 2.0 * err_cpu + 1e-6 * scale
+        assert err_card <= bound, (n, err_card, err_cpu, bound)
 
 
 def test_edge_parallel_step_on_card_matches_single_process(card):

@@ -191,46 +191,198 @@ def test_take_rows_over_budget_matches_jax_segment_sum(rng, monkeypatch,
     np.testing.assert_allclose(onehot_port, onehot_jax, **GRAD_TOL)
 
 
-@pytest.mark.parametrize("rows,dim,plan", [
-    (462, 30, (30, 1024)),      # ICEWS14_forecasting's relation table
-    (475, 48, (48, 1024)),
-    (16, 20, (20, 1024)),       # batch tables: the chunk's floor
-    (50, 30, (30, 1024)),
-    (1000, 200, (32, 2048)),   # 1000 x 128 fp32 is 500 KB: 32-column tiles
-    (1600, 32, (32, 4096)),    # the widest table at 32 columns
-    (1601, 32, None),           # past it: index_put_
-    (5000, 30, None),
-    (20_000, 1, (1, 65536)),   # the chunk's ceiling
+@pytest.mark.parametrize("n,rows,dim,plan", [
+    # ICEWS14_forecasting's relation table at a training hop
+    (657_664, 462, 30, (30, 4096, 64, 161, 1285)),
+    (246_272, 462, 30, (30, 4096, 64, 61, 481)),
+    (1_683_200, 32, 30, (30, 4096, 128, 411, 1644)),  # a sorted batch table
+    (152_780, 461, 20, (20, 4096, 64, 38, 299)),      # ICEWS14_TeMP
+    (1000, 1, 48, (48, 4096, 64, 1, 2)),              # R = 1
+    (0, 16, 20, (20, 4096, 64, 0, 0)),                # E = 0
+    (100_000, 1000, 200, (128, 4096, 64, 25, 196)),   # column tiles
+    (20_000_000, 4096, 32, (32, 4096, 1024, 4883, 2442)),  # the share's cap
+    (5000, 4097, 30, None),     # past the count tables: index_put_
+    (2 ** 31, 10, 30, None),    # past int32 slots
 ])
-def test_scatter_plan_routing_by_shape(rows, dim, plan):
-    assert tg._scatter_plan(rows, dim) == plan
+def test_scatter_plan_routing_by_shape(n, rows, dim, plan):
+    assert tg._scatter_plan(n, rows, dim) == plan
 
 
 def test_scatter_plan_admits_every_table_of_the_paths():
     """Relation tables of up to 475 rows and batch tables of up to 50, at
-    the models' widths, all take the kernel; every plan's table fits the
-    shared-memory budget at a tile of at most 128 columns, the widest
-    that fits, and a chunk that is a power of two."""
+    the models' widths, all take the kernel; every plan's numbers follow
+    its rule: the widest tile up to SHARE_MAX_COLS, the ids in chunks,
+    the shares a power of two covering the ids."""
     for rows in range(1, 476):
         for dim in (16, 20, 30, 32, 48, 64):
-            assert tg._scatter_plan(rows, dim) is not None, (rows, dim)
-    for rows in (1, 7, 100, 462, 1000, 1600, 1601, 20_000, 60_000):
-        for dim in (1, 5, 31, 33, 100, 129, 500):
-            plan = tg._scatter_plan(rows, dim)
-            narrowest = min(dim, 32)
-            assert (plan is None) == (
-                rows * narrowest * 4 > tg.SCATTER_MAX_TABLE_BYTES)
-            if plan is None:
-                continue
-            tile, chunk = plan
-            assert tile <= min(dim, tg.SCATTER_MAX_COLS)
-            assert rows * tile * 4 <= tg.SCATTER_MAX_TABLE_BYTES
-            wider = tile + 32 if tile % 32 == 0 else None
-            if tile < min(dim, tg.SCATTER_MAX_COLS) and wider:
-                assert rows * min(wider, dim) * 4 > \
-                    tg.SCATTER_MAX_TABLE_BYTES
-            assert chunk & (chunk - 1) == 0 and 1024 <= chunk <= 65536
-            assert chunk >= min(2 * rows, 65536)
+            assert tg._scatter_plan(152_780, rows, dim) is not None
+    for n in (0, 1, 4095, 4096, 4097, 10 ** 6, 10 ** 8):
+        for rows in (1, 7, 100, 462, 4096, 4097, 60_000):
+            for dim in (1, 5, 31, 33, 100, 129, 500):
+                plan = tg._scatter_plan(n, rows, dim)
+                assert (plan is None) == (rows > tg.SCATTER_MAX_ROWS)
+                if plan is None:
+                    continue
+                assert plan.tile == min(dim, tg.SHARE_MAX_COLS)
+                assert plan.chunk % 256 == 0
+                assert plan.chunks * plan.chunk >= n > (plan.chunks - 1) \
+                    * plan.chunk
+                assert plan.share & (plan.share - 1) == 0
+                assert 64 <= plan.share <= 1024
+                block = tg.SHARE_WARPS * plan.share
+                assert plan.blocks * block >= n > (plan.blocks - 1) * block
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 511, 512, 513, 152_780,
+                               657_664, 1_683_200, 10 ** 7])
+def test_shares_hold_every_slot_once(n):
+    """The share pass's blocks and warps split positions [0, n) into
+    disjoint pieces that cover it: each position lies in exactly one
+    warp's share, the same for both kernels' plans at that n."""
+    share = tg.share_slots(n)
+    blocks = tg._blocks(n, share)
+    assert tg._range_plan(n, 7, 30).share == share
+    assert tg._range_plan(n, 7, 30).blocks == blocks
+    assert tg._scatter_plan(n, 5, 30).blocks == blocks
+    warp = torch.arange(blocks * tg.SHARE_WARPS)
+    lo = warp * share
+    hi = torch.clamp(lo + share, max=n)
+    lo = torch.clamp(lo, max=n)
+    assert int((hi - lo).sum()) == n
+    assert bool((lo[1:] == hi[:-1]).all())
+    if n:
+        assert int(lo[0]) == 0 and int(hi[-1]) == n
+        # no block past the list
+        assert (blocks - 1) * tg.SHARE_WARPS * share < n
+    else:
+        assert blocks == 0
+
+
+def test_plans_depend_on_shapes_alone():
+    """The launch plans take the shapes (E, R, D) / (E, P, D) and nothing
+    else, and every number in them is an int: the kernels' order of
+    summation, and so their bits, is fixed by the inputs' shapes."""
+    import inspect
+
+    assert list(inspect.signature(tg._scatter_plan).parameters) == \
+        ["n", "rows", "dim"]
+    assert list(inspect.signature(tg._range_plan).parameters) == \
+        ["n", "p", "dim"]
+    assert list(inspect.signature(tg.share_slots).parameters) == ["n"]
+    for plan in (tg._scatter_plan(657_664, 462, 30),
+                 tg._range_plan(657_664, 45_568, 30)):
+        assert all(type(v) is int for v in plan)
+    assert tg._range_plan(246_272, 6_400, 30) == (30, 64, 13, 481)
+
+
+def _scatter_cases(rng):
+    """(name, g, idx, rows) of the contract's scatter layouts."""
+    d = 5
+    out = []
+    for name, n, rows in (("random", 20_000, 462), ("one_row", 30_000, 9),
+                          ("sorted_batch", 40_000, 32), ("r1", 5_000, 1),
+                          ("dropped", 8_000, 40), ("empty", 0, 12)):
+        ids = rng.integers(0, rows, n)
+        if name == "one_row":
+            ids[:] = 4
+        elif name == "sorted_batch":
+            ids = np.sort(ids)
+        elif name == "dropped":
+            ids = rng.integers(-6, rows + 6, n)
+        g = rng.normal(size=(n, d)).astype(np.float32)
+        out.append((name, torch.from_numpy(g), torch.from_numpy(ids), rows))
+    return out
+
+
+def _model_bound(got, want, s_abs, m):
+    """|got - want| <= 1e-5 |want| + 2 (m - 1) u sum|x| per cell."""
+    m = m.to(torch.float64)[:, None]
+    bound = 1e-5 * want.abs() + 2 * torch.clamp(m - 1, min=0) * U * s_abs
+    diff = (got.double() - want).abs()
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_scatter_model_matches_float64(rng, case):
+    """The kernel's order in plain PyTorch (stable sort, warp shares,
+    block and group fix-ups, `scatter_rows_add_model`) against a float64
+    index_add_, within the rounding bound of a float32 sum of m terms;
+    ids outside [0, R) dropped, an empty table row 0. On multiples of 1/8
+    every partial sum is exact, so the model gives float64's bits."""
+    name, g, idx, rows = _scatter_cases(rng)[case]
+    ok = (idx >= 0) & (idx < rows)
+    got = tg.scatter_rows_add_model(g, idx, rows)
+    assert got.dtype == torch.float32 and got.shape == (rows, g.shape[1])
+    want = torch.zeros(rows, g.shape[1], dtype=torch.float64).index_add_(
+        0, idx[ok], g[ok].double())
+    s_abs = torch.zeros_like(want).index_add_(0, idx[ok], g[ok].abs().double())
+    _model_bound(got, want, s_abs, torch.bincount(idx[ok], minlength=rows))
+    dyadic = torch.from_numpy(
+        (rng.integers(-64, 64, size=tuple(g.shape)) / 8).astype(np.float32))
+    exact = torch.zeros_like(want).index_add_(0, idx[ok], dyadic[ok].double())
+    assert torch.equal(tg.scatter_rows_add_model(dyadic, idx, rows).double(),
+                       exact)
+    # and JAX's segment_sum on the valid ids
+    jx = np.asarray(jax.ops.segment_sum(jnp.asarray(g[ok].numpy()),
+                                        jnp.asarray(idx[ok].numpy()),
+                                        num_segments=rows))
+    np.testing.assert_allclose(got.numpy(), jx, **GRAD_TOL)
+
+
+def test_scatter_model_spreads_a_hot_row_over_groups(rng):
+    """One row holding 90% of 10^5 ids crosses ~1,400 warp shares, ~176
+    blocks and 6 fix-up groups at share 64: every level of the order is
+    taken, and the sum still lies within the bound of float64."""
+    n, rows = 100_000, 3
+    idx = torch.from_numpy(np.where(rng.random(n) < 0.9, 1,
+                                    rng.integers(0, rows, n)))
+    g = torch.from_numpy(rng.normal(size=(n, 4)).astype(np.float32))
+    assert tg.share_slots(n) == 64
+    assert n * 0.9 / (tg.SHARE_WARPS * 64) > tg.SHARE_FIX_GROUP
+    got = tg.scatter_rows_add_model(g, idx, rows)
+    want = torch.zeros(rows, 4, dtype=torch.float64).index_add_(
+        0, idx, g.double())
+    s_abs = torch.zeros_like(want).index_add_(0, idx, g.abs().double())
+    _model_bound(got, want, s_abs, torch.bincount(idx, minlength=rows))
+
+
+def _range_cases(rng):
+    """(name, start, count, E) of the contract's range layouts."""
+    out = [(kind,) + ranges(rng, kind) for kind in KINDS]
+    p = 60
+    start = rng.integers(-10, 900, p)     # unordered, overlapping, negative
+    count = rng.integers(-3, 300, p)
+    out.append(("overlapping", start, count, 1000))
+    start = np.zeros(40, np.int64)        # longer than the grid's shares
+    out.append(("over_grid", start, np.full(40, 700), 700))
+    out.append(("empty_g", np.array([0, 3]), np.array([2, 1]), 0))
+    return out
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_range_model_matches_reference(rng, case):
+    """The kernel's order in plain PyTorch (`range_sum_model`: the clipped
+    ranges laid end to end, warp shares, block and group fix-ups) against
+    `range_sum_reference` (float64) within the rounding bound of a float32
+    sum of m terms, and against JAX's `_gp_bwd` where the ranges are the
+    packed gather's; on multiples of 1/8, float64's bits."""
+    name, start, count, e = _range_cases(rng)[case]
+    d = 3
+    g = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32))
+    st, ct = torch.from_numpy(start), torch.from_numpy(count)
+    got = tg.range_sum_model(g, st, ct)
+    want = tg.range_sum_reference(g, st, ct)
+    lo, m = tg._clipped(st, ct, e)
+    _model_bound(got, want, tg.range_sum_reference(g.abs(), st, ct), m)
+    assert bool((got[(ct <= 0) | (st >= e)] == 0).all())
+    dyadic = torch.from_numpy(
+        (rng.integers(-64, 64, size=(e, d)) / 8).astype(np.float32))
+    assert torch.equal(tg.range_sum_model(dyadic, st, ct).double(),
+                       tg.range_sum_reference(dyadic, st, ct))
+    if name in KINDS:
+        jx = jax_range_grad(g.numpy(), start, count)
+        bound = 2 * e * U * np.abs(g.numpy()).sum(0) + 1e-5 * np.abs(jx)
+        assert np.all(np.abs(got.numpy() - jx) <= bound)
 
 
 def test_wrappers_take_the_plain_path_on_the_cpu(rng):

@@ -3,15 +3,16 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (time_kernel_variants.py times other builds of the kernel at the same
-hop shapes.) ``python3 chip_smoke.py --phase 7g [--tree DIR]`` runs phase
-7g alone, with this tree's or DIR's script and package.
+hop shapes.) ``python3 chip_smoke.py --phase 7g|7h [--tree DIR]`` runs
+phase 7g or 7h alone, with this tree's or DIR's script and package.
 
 Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit; TF32 off.
-  2. build: compile the three CUDA kernels from csrc/ with nvcc (the
-     sorted-segment sum, the range sum and the small-table scatter-add),
-     and the native graph walker (native/graphcore.cpp) with the host's
-     C++ compiler, all four at once; their seconds are printed.
+  2. build: compile the five CUDA kernels from csrc/ with nvcc (the
+     sorted-segment sum, the range sum, the small-table scatter-add, the
+     list sum and the slot owner), and the native graph walker
+     (native/graphcore.cpp) with the host's C++ compiler, all six at once;
+     their seconds are printed.
   3. kernel vs plain: the kernel against its plain PyTorch version on the
      card, at the shapes of the slice's own hops (batch 50, L=3, D=48)
      plus skewed / empty / out-of-range / kmax-overflow / scalar-path
@@ -88,7 +89,22 @@ Phases (any failure raises, and the script exits non-zero):
      one library call (segment_reduce; index_add_, which take_rows_grad
      must not be slower than); the first train call of each kernel also at
      other shares (slots a warp of the share pass sums) and under
-     torch.profiler (each pass's device time).
+     torch.profiler (each pass's device time). 7h (in 7a and 7c, and at
+     the family and umls cells): the hop's index kernels. slot_owner (the
+     owner of each expansion slot) at every hop of a served batch and a
+     train step of 7a and 7c and of a family served batch: bit-equal to
+     its plain twin (searchsorted) and to the JAX package's
+     scatter-and-cummax route, timed beside its byte bound, the twin, the
+     cummax route and torch.searchsorted; counted over the served batches
+     (1 a 7a batch, 3 a 7c or family batch) and the train steps. list_sum
+     (the dense hop's packed-row gather backward) at 7a's three dense
+     train calls (W = 672) and umls's (6b, W = 980): against float64,
+     bit-equal to list_sum_model and twice, timed with L2 warm and flushed
+     beside its byte bound, the plain twin (the sorted index_put_ autograd
+     took) and index_add_; counted over the trainers' steps (3 a 7a step).
+     ``--phase 7h [--tree DIR]`` times 7a's step and 7c's served batch
+     (with their profiles) through DIR's own functions, then runs the
+     kernel checks where DIR has them.
   8. the xERTE and SimplE baselines on 7c's dir: 8a xERTE at full width
      (emb 256-128-64-32, 3 DP steps, K 15, 40 attended edges, batch 128,
      cap factor 4) with XErteTrainer's seeded init: 8 timed forward
@@ -401,13 +417,14 @@ def log_ptxas(text: str) -> None:
 
 
 def phase_build():
-    """Build the three CUDA kernels and the native walker at once (one
-    compiler process each); returns the walker's build seconds."""
+    """Build the CUDA kernels (`_build.KERNELS`) and the native walker at
+    once (one compiler process each); returns the walker's build
+    seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
     from redgnn_tpu_torch import _build
 
-    names = ("segment_sum_sorted", "range_sum", "take_rows_grad")
+    names = _build.KERNELS
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names) + 1) as pool:
         host_job = pool.submit(_build.build_host, "graphcore")
@@ -419,8 +436,8 @@ def phase_build():
         log_ptxas(res["log"])
     log(f"[build] native/graphcore.cpp -> {os.path.relpath(host['path'])} "
         f"in {host['seconds']:.2f} s ({_build._host_cxx()} "
-        f"{' '.join(_build.HOST_FLAGS)}); all four builds at once "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{' '.join(_build.HOST_FLAGS)}); all {len(names) + 1} builds at "
+        f"once {time.perf_counter() - t0:.2f} s")
     return host["seconds"]
 
 
@@ -640,6 +657,7 @@ def batch_card_vs_cpu(model, pred, q, tag: str):
 
 
 def phase_slice(kg, model, pred, queries, card):
+    from redgnn_tpu_torch.ops.frontier import slot_owner
     from redgnn_tpu_torch.ops.segment_sorted import segment_sum_sorted_checked
 
     b = pred.batch
@@ -653,7 +671,7 @@ def phase_slice(kg, model, pred, queries, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    segment_sum_sorted_checked.launches = 0
+    segment_sum_sorted_checked.launches = slot_owner.launches = 0
     times, out_s, out_e = [], [], []
     for k in range(N_BATCHES):
         q = queries[k * b:(k + 1) * b]
@@ -663,9 +681,11 @@ def phase_slice(kg, model, pred, queries, card):
         out_s.append(s)
         out_e.append(e)
     launches = segment_sum_sorted_checked.launches
+    owner_launches = slot_owner.launches
     peak = torch.cuda.max_memory_allocated()
 
     assert launches == model.cfg.n_layer * N_BATCHES, launches
+    assert owner_launches == model.cfg.n_layer * N_BATCHES, owner_launches
     s_all = np.concatenate(out_s)
     assert s_all.shape == (N_BATCHES * b, 10) and np.isfinite(s_all).all()
     ents = np.concatenate(out_e)
@@ -673,13 +693,20 @@ def phase_slice(kg, model, pred, queries, card):
     log(f"[slice] served {N_BATCHES} batches of {b}: per-batch ms "
         f"{[round(t, 3) for t in times]}; mean {np.mean(times):.3f} ms; "
         f"{N_BATCHES * b / (sum(times) / 1e3):.1f} queries/s; "
-        f"max_memory_allocated {peak} B; launches {launches} "
-        f"(= {model.cfg.n_layer} hops x {N_BATCHES}) ({card})")
+        f"max_memory_allocated {peak} B; launches {launches}, slot_owner "
+        f"{owner_launches} (each = {model.cfg.n_layer} hops x {N_BATCHES}) "
+        f"({card})")
 
     profile_batches(pred, queries[:2 * b], card)
 
     batch_card_vs_cpu(model, pred, queries[:b], "[slice]")
-    return launches
+    # phase 7h at the family cell: the owner fill at every hop of a batch
+    owners, _ = hop_index_calls(
+        lambda: pred.predict(queries[:b, 0], queries[:b, 1]))
+    assert len(owners) == model.cfg.n_layer, len(owners)
+    rows = [slot_owner_call_check(*c, "[slice] 7h serve", card)
+            for c in owners]
+    return launches, rows
 
 
 # ------------------------------------------------------- phase 5: training
@@ -1228,6 +1255,7 @@ def phase_dense_kernel(data_dir: str, card):
     the kernel's rows at the dense calls and its launches per batch and
     step."""
     from redgnn_tpu_torch.models.redgnn import hop_plan
+    from redgnn_tpu_torch.ops.gather import list_sum
     from redgnn_tpu_torch.ops.segment_sorted import segment_sum_sorted_checked
     from redgnn_tpu_torch.train.loop import softmax_ce_loss
 
@@ -1270,6 +1298,19 @@ def phase_dense_kernel(data_dir: str, card):
     train_rows = dense_kernel_check(calls[-2 * t_dense:], kg.n_ent,
                                     "[6b] training", card)
     del calls
+
+    def one_step():
+        subs, rels, objs, qmask = step_tensors(plain, 0)
+        scores, _ = plain.model(plain.kg.graph, subs, rels, qmask, caps)
+        softmax_ce_loss(scores, objs, qmask).backward()
+
+    # phase 7h at the umls cell: the dense hops' packed-row gather backward
+    _, lists = hop_index_calls(one_step)
+    plain.model.zero_grad(set_to_none=True)
+    assert len(lists) == t_dense, (len(lists), t_dense)
+    list_rows = [list_sum_call_check(*c, "[6b] 7h training", card)
+                 for c in lists]
+    del lists
     log(f"[6b] hops: serving (batch {pred.batch}) {kinds}, caps edge "
         f"{pred.caps.edge_caps}; training (batch {cfg.n_batch}) {tkinds}, "
         f"caps edge {caps.edge_caps}")
@@ -1302,18 +1343,22 @@ def phase_dense_kernel(data_dir: str, card):
 
     trainer = make_trainer(data_dir, "cuda", cfg,
                            steps=UMLS_TRAIN_STEPS)
-    segment_sum_sorted_checked.launches = 0
+    segment_sum_sorted_checked.launches = list_sum.launches = 0
     train_steps_check(trainer, UMLS_TRAIN_STEPS, "[6b]", card)
     train_launches = segment_sum_sorted_checked.launches
+    list_launches = list_sum.launches
     assert train_launches == 2 * UMLS_TRAIN_STEPS * per_step, train_launches
+    assert list_launches == 2 * UMLS_TRAIN_STEPS * t_dense, list_launches
     log(f"[6b] {train_launches} kernel launches over 2 x "
         f"{UMLS_TRAIN_STEPS} steps (= ({len(tkinds) - t_dense} sparse + "
-        f"2 x {t_dense} dense) a step)")
+        f"2 x {t_dense} dense) a step); list_sum {list_launches} (= "
+        f"{t_dense} dense hops a step)")
     profile_steps(trainer, trainer.train_caps, card)
     return {"serve": serve_rows, "train": train_rows,
             "launches": launches, "launches_per_batch": per_batch,
             "train_launches": train_launches,
-            "launches_per_step": per_step}
+            "launches_per_step": per_step, "list_sum": list_rows,
+            "list_launches": list_launches}
 
 
 def phase_family_defaults(data_dir: str, card):
@@ -1773,37 +1818,45 @@ GATHER_KERNELS = {
 U32 = 2.0 ** -24  # float32 unit roundoff
 
 
-def record_gather_backwards(run):
-    """[g, start, count] of every range sum (`gather_rows_packed`'s
-    backward) and [g, idx, rows] of every scatter-add (`take_rows`'
-    backward above the one-hot budget) that ``run()`` computes, in order.
-    The wrapper itself runs unchanged (it counts its own launches)."""
-    from redgnn_tpu_torch.ops import gather
+def record_calls(targets, run):
+    """{name: [args of each call]} of the functions ``targets`` ((module,
+    name) pairs) that ``run()`` makes, in order, tensors cloned. Each
+    function itself runs unchanged: a wrapper counts its launches on its
+    own name, so the original is put back for the call."""
+    calls = {name: [] for _, name in targets}
 
-    sums, scatters = [], []
-
-    def recording(name, calls):
-        orig = getattr(gather, name)
-
-        def rec(g, *args):
-            calls.append([g.detach().clone(), *args])
-            setattr(gather, name, orig)  # the wrapper counts on its name
+    def recording(module, name, orig):
+        def rec(*args):
+            calls[name].append([a.detach().clone() if torch.is_tensor(a)
+                                else a for a in args])
+            setattr(module, name, orig)
             try:
-                return orig(g, *args)
+                return orig(*args)
             finally:
-                setattr(gather, name, rec)
-        return orig, rec
+                setattr(module, name, rec)
+        return rec
 
-    patched = [(name, *recording(name, calls)) for name, calls in
-               (("range_sum", sums), ("scatter_rows_add", scatters))]
-    for name, _, rec in patched:
-        setattr(gather, name, rec)
+    origs = [(module, name, getattr(module, name))
+             for module, name in targets]
+    for module, name, orig in origs:
+        setattr(module, name, recording(module, name, orig))
     try:
         run()
     finally:
-        for name, orig, _ in patched:
-            setattr(gather, name, orig)
-    return sums, scatters
+        for module, name, orig in origs:
+            setattr(module, name, orig)
+    return calls
+
+
+def record_gather_backwards(run):
+    """[g, start, count] of every range sum (`gather_rows_packed`'s
+    backward) and [g, idx, rows] of every scatter-add (`take_rows`'
+    backward above the one-hot budget) that ``run()`` computes, in order."""
+    from redgnn_tpu_torch.ops import gather
+
+    calls = record_calls([(gather, "range_sum"),
+                          (gather, "scatter_rows_add")], run)
+    return calls["range_sum"], calls["scatter_rows_add"]
 
 
 def sum_bound_check(got, want, s_abs, m):
@@ -1971,34 +2024,17 @@ def scatter_call_check(g, idx, rows, what: str, card, sweep=False):
             "library_ms": t_l}
 
 
-def gather_kernels_check(trainer, pred, queries, main: dict, steps: int,
-                         tag: str, card):
-    """Phase 7g: both gather-backward kernels at the real inputs of one
-    served batch (differentiated: its NLL at the batch's answers; serving
-    itself runs no backward, so 0 launches a served batch) and of one
-    training step at the trainer's caps (no dropout), held and timed call
-    by call. ``main`` holds the launches counted over the trainer's
-    ``steps`` steps. Returns the rows and counts of both kernels."""
-    from redgnn_tpu_torch.ops.gather import range_sum, scatter_rows_add
+def temporal_step_fn(trainer):
+    """One training step's forward and backward at the trainer's caps
+    (the split's, as in temporal_profile_steps) on a seeded batch, no
+    dropout, as a function of no arguments."""
     from redgnn_tpu_torch.train.temporal_loop import (
         exact_caps,
         nll_softmax_loss,
     )
 
     kg, cfg, model = trainer.kg, trainer.cfg, trainer.model
-    q0 = queries[:pred.batch]
-    range_sum.launches = scatter_rows_add.launches = 0
-    pred.predict(q0[:, 0], q0[:, 1], q0[:, 3])
-    assert range_sum.launches == scatter_rows_add.launches == 0
-
-    def served():
-        batch = quad_tensors(q0, "cuda")
-        scores, _ = temporal_forward(model, kg, batch, pred.caps)
-        nll_softmax_loss(scores, batch[2], batch[4]).backward()
-
     quads, rows = train_sample(kg, cfg.batch_size)
-    # the caps the trainer's steps run at (the split's), as in
-    # temporal_profile_steps
     caps = trainer.caps["train"].union(exact_caps(kg, cfg, quads,
                                                   cfg.batch_size))
     excl = (torch.as_tensor(kg.exclusion_slots(rows).astype(np.int32),
@@ -2010,6 +2046,32 @@ def gather_kernels_check(trainer, pred, queries, main: dict, steps: int,
         scores, _ = temporal_forward(model, kg, batch, caps, excl)
         nll_softmax_loss(scores, batch[2], batch[4]).backward()
 
+    return step
+
+
+def gather_kernels_check(trainer, pred, queries, main: dict, steps: int,
+                         tag: str, card):
+    """Phase 7g: both gather-backward kernels at the real inputs of one
+    served batch (differentiated: its NLL at the batch's answers; serving
+    itself runs no backward, so 0 launches a served batch) and of one
+    training step at the trainer's caps (no dropout), held and timed call
+    by call. ``main`` holds the launches counted over the trainer's
+    ``steps`` steps. Returns the rows and counts of both kernels."""
+    from redgnn_tpu_torch.ops.gather import range_sum, scatter_rows_add
+    from redgnn_tpu_torch.train.temporal_loop import nll_softmax_loss
+
+    kg, model = trainer.kg, trainer.model
+    q0 = queries[:pred.batch]
+    range_sum.launches = scatter_rows_add.launches = 0
+    pred.predict(q0[:, 0], q0[:, 1], q0[:, 3])
+    assert range_sum.launches == scatter_rows_add.launches == 0
+
+    def served():
+        batch = quad_tensors(q0, "cuda")
+        scores, _ = temporal_forward(model, kg, batch, pred.caps)
+        nll_softmax_loss(scores, batch[2], batch[4]).backward()
+
+    step = temporal_step_fn(trainer)
     out = {}
     for part, run in (("serve", served), ("train", step)):
         range_sum.launches = scatter_rows_add.launches = 0
@@ -2092,6 +2154,207 @@ def phase_gather_alone(mod, card):
     return out
 
 
+# ------------- phase 7h: the hop's index kernels (list_sum, slot_owner)
+
+# two XLA compositions of the JAX package written as Hopper kernels: the
+# dense hop's packed-row gather backward and the expansion's owner fill
+HOP_INDEX_KERNELS = {
+    "list_sum": {"source": "redgnn_tpu_torch/csrc/list_sum.cu",
+                 "replaces": "redgnn_tpu/models/layers.py:176"},
+    "slot_owner": {"source": "redgnn_tpu_torch/csrc/slot_owner.cu",
+                   "replaces": "redgnn_tpu/ops/frontier.py:179"},
+}
+HOP_ALONE_STEPS = 8  # train steps an epoch in --phase 7h
+
+
+def list_sum_call_check(g, order, off, what: str, card):
+    """The list-sum kernel at one recorded call (a dense hop's packed-row
+    gather backward): against the float64 sum (rtol 1e-5 + 2(m-1)u
+    sum|x|), bit-equal to the plain model of its order (`list_sum_model`)
+    and on a second call, times with L2 warm and flushed, the byte bound,
+    the plain twin (the ``index_put_(accumulate=True)`` over the gather's
+    index that autograd took before) and ``index_add_``."""
+    from redgnn_tpu_torch.ops import gather
+
+    e, w = g.shape
+    n = off.shape[0] - 1
+    plan = gather._list_plan(e, n, w)
+    got, again = gather.list_sum(g, order, off), gather.list_sum(g, order,
+                                                                 off)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "two calls gave different bits"
+    assert torch.equal(got, gather.list_sum_model(g, order, off)), \
+        "the kernel left the order of its model"
+    m = torch.diff(off.long())
+    err = sum_bound_check(got, gather.list_sum_reference(g, order, off),
+                          gather.list_sum_reference(g.abs(), order, off), m)
+    # the gather's own index (the tail-sorted table's sources): the list
+    # names every slot once
+    assert int(m.sum()) == e, (int(m.sum()), e)
+    idx = torch.empty(e, dtype=torch.int64, device=g.device)
+    idx[order.long()] = torch.repeat_interleave(
+        torch.arange(n, device=g.device), m)
+    t_k = device_ms(lambda: gather.list_sum(g, order, off))
+    t_f = flushed_ms(lambda: gather.list_sum(g, order, off))
+    t_p = call_ms(lambda: g.new_zeros(n, w).index_put_(
+        (idx,), g, accumulate=True), rounds=2, iters=1, warmup=1)[0]
+    t_l = device_ms(lambda: g.new_zeros(n, w).index_add_(0, idx, g))
+    b_ms = (e * w * 4 + n * w * 4 + e * 4 + (n + 1) * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"{what} list_sum E={e} N={n} W={w} (largest row {int(m.max())} "
+        f"positions, {int((m == 0).sum())} empty rows; plan: {plan.blocks} "
+        f"shares of {gather.SHARE_WARPS} x {plan.share} positions, "
+        f"{-(-w // plan.tile)} column tiles of {plan.tile}): kernel within "
+        f"rtol 1e-5 + 2(m-1)u sum|x| of the float64 sum (max |diff| "
+        f"{err:.3g}), bit-equal to its model and twice; kernel {t_k:.4f} ms "
+        f"L2 warm, {t_f:.4f} ms flushed; byte bound {b_ms * 1e3:.2f} us = "
+        f"{b_ms / t_k:.1%} of the warm time, {b_ms / t_f:.1%} of the "
+        f"flushed; plain (index_put_, sorted) {t_p:.4f} ms, index_add_ "
+        f"{t_l:.4f} ms ({card})")
+    return {"E": e, "N": n, "W": w, "largest": int(m.max()),
+            "max_abs_err": err, "ms": t_k, "ms_l2_flushed": t_f,
+            "bound_ms": b_ms, "plain_ms": t_p, "library_ms": t_l}
+
+
+def slot_owner_call_check(cum, edge_cap: int, what: str, card):
+    """The slot-owner kernel at one recorded call (a hop's expansion):
+    bit-equal to its plain twin (`slot_owner_plain`, searchsorted) and to
+    the JAX package's scatter-and-cummax route, times beside the byte
+    bound, the plain twin, the cummax route and one torch.searchsorted
+    over the clamped slots."""
+    from redgnn_tpu_torch.ops import frontier
+
+    got = frontier.slot_owner(cum, edge_cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, frontier.slot_owner_plain(cum, edge_cap)), \
+        "the kernel left its plain twin"
+    assert torch.equal(got, frontier.slot_owner_cummax(cum, edge_cap)), \
+        "the kernel left the cummax route"
+    p = cum.shape[0]
+    total = int(cum[-1])
+    xs = torch.minimum(torch.arange(edge_cap, device=cum.device), cum[-1] - 1)
+    t_k = device_ms(lambda: frontier.slot_owner(cum, edge_cap))
+    t_f = flushed_ms(lambda: frontier.slot_owner(cum, edge_cap))
+    t_p = device_ms(lambda: frontier.slot_owner_plain(cum, edge_cap))
+    t_c = device_ms(lambda: frontier.slot_owner_cummax(cum, edge_cap))
+    t_l = device_ms(lambda: torch.searchsorted(cum, xs, right=True))
+    b_ms = (p * 8 + edge_cap * 8) / HBM_BYTES_PER_S * 1e3
+    owners = int((torch.diff(cum, prepend=cum.new_zeros(1)) > 0).sum())
+    log(f"{what} slot_owner P={p} edge_cap={edge_cap} ({total} edges, "
+        f"{owners} nodes with edges): bit-equal to searchsorted and to the "
+        f"cummax route; kernel {t_k:.4f} ms L2 warm, {t_f:.4f} ms flushed; "
+        f"byte bound {b_ms * 1e3:.2f} us = {b_ms / t_k:.1%} of the warm "
+        f"time; plain twin (searchsorted) {t_p:.4f} ms, the cummax route "
+        f"{t_c:.4f} ms, torch.searchsorted alone {t_l:.4f} ms ({card})")
+    return {"P": p, "edge_cap": edge_cap, "max_abs_err": 0.0, "ms": t_k,
+            "ms_l2_flushed": t_f, "bound_ms": b_ms, "plain_ms": t_p,
+            "cummax_ms": t_c, "library_ms": t_l}
+
+
+def hop_index_calls(run):
+    """[cum, edge_cap] of every owner fill and [g, order, off] of every
+    listed-gather backward that ``run()`` makes, in order."""
+    from redgnn_tpu_torch.ops import frontier, gather
+
+    calls = record_calls([(frontier, "slot_owner"), (gather, "list_sum")],
+                         run)
+    return calls["slot_owner"], calls["list_sum"]
+
+
+def hop_index_check(trainer, pred, queries, main: dict, steps: int, tag: str,
+                    card):
+    """Phase 7h (in 7a and 7c): the slot-owner kernel at every hop of one
+    served batch and of one training step, the list-sum kernel at every
+    dense call of the step, each held and timed call by call. ``main``
+    holds the launches counted over the trainer's ``steps`` steps and the
+    served batches. Returns the rows and counts of both kernels."""
+    q0 = queries[:pred.batch]
+    out = {"slot_owner": {}, "list_sum": {}}
+    for part, run in (("serve", lambda: pred.predict(q0[:, 0], q0[:, 1],
+                                                    q0[:, 3])),
+                      ("train", temporal_step_fn(trainer))):
+        owners, lists = hop_index_calls(run)
+        trainer.model.zero_grad(set_to_none=True)
+        what = f"{tag} {part}"
+        out["slot_owner"][part] = [slot_owner_call_check(*c, what, card)
+                                   for c in owners]
+        out["list_sum"][part] = [list_sum_call_check(*c, what, card)
+                                 for c in lists]
+        for name, calls in (("slot_owner", owners), ("list_sum", lists)):
+            out[name][f"launches_per_{part}"] = len(calls)
+        del owners, lists
+    assert out["list_sum"]["launches_per_serve"] == 0  # no backward
+    for name in out:
+        rows = out[name]["train"]
+        out[name]["launches"] = main[name]
+        log(f"{tag} {name}: {out[name]['launches_per_serve']} launches a "
+            f"served batch, {out[name]['launches_per_train']} a train step "
+            f"({main[name]} over the {steps} steps of the trainer's "
+            f"epochs); per train step kernel "
+            f"{sum(r['ms'] for r in rows):.4f} ms L2 warm, byte bound "
+            f"{sum(r['bound_ms'] for r in rows):.4f} ms, plain "
+            f"{sum(r['plain_ms'] for r in rows):.4f} ms ({card})")
+    return out
+
+
+def phase_hop_alone(mod, card):
+    """Phase 7h alone (``--phase 7h``): 7a's and 7c's dirs, trainers and
+    Predictors as phase 7 builds them; ``N_BATCHES`` timed served batches
+    and their profile, two epochs of ``HOP_ALONE_STEPS`` train steps and a
+    2-step profile, through ``mod``'s own functions, then (where ``mod``
+    has phase 7h) its kernel checks at the same calls. ``mod`` is this
+    script or, with ``--tree DIR``, DIR's chip_smoke.py running DIR's
+    package: the parent tree's steps and batches on the same card. Returns
+    ms per served batch and per step of both cells."""
+    from redgnn_tpu_torch.cli.train import load_temporal_kg
+    from redgnn_tpu_torch.ops import frontier, gather
+    from redgnn_tpu_torch.serve import Predictor
+    from redgnn_tpu_torch.train.temporal_loop import TemporalTrainer
+    from redgnn_tpu_torch.utils.config import dataset_config
+
+    counted = [getattr(frontier, "slot_owner", None),
+               getattr(gather, "list_sum", None)]
+    counted = [f for f in counted if f is not None]
+    out = {}
+    for entry, forecasting, tag in (("ICEWS14_TeMP", False, "[7a]"),
+                                    ("ICEWS14_forecasting", True, "[7c]")):
+        with tempfile.TemporaryDirectory() as tmp:
+            mod.write_icews14_sized(tmp, forecasting)
+            cfg = dataset_config("temporal", entry,
+                                 max_train_batches=HOP_ALONE_STEPS,
+                                 max_eval_batches=1)
+            trainer = TemporalTrainer(load_temporal_kg(tmp, cfg, "cuda"), cfg)
+            if not forecasting:  # as phase 7a scales it
+                with torch.no_grad():
+                    trainer.model.classifier_w.abs_().mul_(1e-6)
+            pred = Predictor.from_trainer(trainer, split="test", top_k=10)
+            queries = trainer.kg.splits["test"][:N_BATCHES * pred.batch]
+            mod.timed_batches(pred, queries, 1)  # warm-up
+            for f in counted:
+                f.launches = 0
+            times, _ = mod.timed_batches(pred, queries, N_BATCHES)
+            served = {f.__name__: f.launches for f in counted}
+            log(f"{tag} served {N_BATCHES} batches of {pred.batch}: "
+                f"per-batch ms {[round(t, 3) for t in times]}; mean "
+                f"{np.mean(times):.3f} ms; launches {served} ({card})")
+            mod.profile_batches(pred, queries[:2 * pred.batch], card)
+            for f in counted:
+                f.launches = 0
+            step_ms, _ = mod.temporal_train_check(trainer, tag, card)
+            main = {f.__name__: f.launches for f in counted}
+            log(f"{tag} launches over {2 * HOP_ALONE_STEPS} train steps: "
+                f"{main}")
+            mod.temporal_profile_steps(trainer, card)
+            res = (mod.hop_index_check(trainer, pred, queries, main,
+                                       2 * HOP_ALONE_STEPS, tag, card)
+                   if hasattr(mod, "hop_index_check") else {})
+        out[entry] = {"serve_ms": float(np.mean(times)), "step_ms": step_ms,
+                      "kernels": {name: {part: [r["ms"] for r in res[name][
+                          part]] for part in ("serve", "train")}
+                          for name in res}}
+    return out
+
+
 def phase_temporal(data_dir: str, name: str, tag: str, card):
     """Phase 7a / 7c: the registry entry ``name`` on an ICEWS14-sized dir
     (loaded as the CLI loads it) at its defaults, then (7b, and within 7c)
@@ -2100,7 +2363,12 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
 
     from redgnn_tpu_torch.cli.train import load_temporal_kg
     from redgnn_tpu_torch.models.temporal import TRedGNN, temporal_hop_plan
-    from redgnn_tpu_torch.ops.gather import range_sum, scatter_rows_add
+    from redgnn_tpu_torch.ops.frontier import slot_owner
+    from redgnn_tpu_torch.ops.gather import (
+        list_sum,
+        range_sum,
+        scatter_rows_add,
+    )
     from redgnn_tpu_torch.serve import Predictor
     from redgnn_tpu_torch.train.temporal_loop import TemporalTrainer
     from redgnn_tpu_torch.utils.config import dataset_config
@@ -2146,11 +2414,20 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
     # Predictor's profile), so the split is served in that order
     queries = kg.splits["test"][:N_BATCHES * pred.batch]
     timed_batches(pred, queries, 1)  # warm-up
+    # the main path of the owner fill's kernel: the served batches, counted
+    slot_owner.launches = list_sum.launches = 0
     times, peak = timed_batches(pred, queries, N_BATCHES)
+    served = {"slot_owner": slot_owner.launches,
+              "list_sum": list_sum.launches}
+    n_sparse = len(kinds) - kinds.count("dense")
+    assert served == {"slot_owner": n_sparse * N_BATCHES, "list_sum": 0}, \
+        served
     log(f"{tag} served {N_BATCHES} batches of {pred.batch} at registry "
         f"defaults (Predictor.from_trainer): per-batch ms "
         f"{[round(t, 3) for t in times]}; mean {np.mean(times):.3f} ms; "
-        f"max_memory_allocated {peak} B ({card})")
+        f"max_memory_allocated {peak} B; slot_owner launches "
+        f"{served['slot_owner']} (= {n_sparse} sparse hops x {N_BATCHES}) "
+        f"({card})")
     profile_batches(pred, queries[:2 * pred.batch], card)
     soft_check(tag, temporal_batch_card_vs_cpu, trainer.model, kg, kg_cpu,
                pred.caps, queries[:pred.batch], tag)
@@ -2180,22 +2457,33 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
     del strict
     kernel = temporal_kernel_path(trainer, pred, queries, kg_cpu,
                                   "[7b]" if tag == "[7a]" else tag, card)
-    # the main path of the gather backwards' kernels: the trainer's two
-    # epochs, counted
+    # the main path of the gather backwards' kernels and of the dense
+    # hop's list sum: the trainer's two epochs, counted
     range_sum.launches = scatter_rows_add.launches = 0
+    slot_owner.launches = list_sum.launches = 0
     step_ms, train_peak = temporal_train_check(trainer, tag, card)
     main = {"range_sum": range_sum.launches,
-            "take_rows_grad": scatter_rows_add.launches}
+            "take_rows_grad": scatter_rows_add.launches,
+            "slot_owner": slot_owner.launches,
+            "list_sum": list_sum.launches}
     steps = 2 * cfg.max_train_batches
+    tkinds = temporal_hop_plan(trainer.model_cfg, kg.graph.n_edges,
+                               trainer.caps["train"], cfg.batch_size, True)
     log(f"{tag} kernel launches over the {steps} train steps at the "
-        f"defaults: range_sum {main['range_sum']}, take_rows_grad "
-        f"{main['take_rows_grad']}")
+        f"defaults (hops {tkinds}): {main}")
     assert main["take_rows_grad"] > 0, main
     assert main["range_sum"] > 0 or not forecasting, main
+    assert main["list_sum"] == tkinds.count("dense") * steps, main
+    assert main["slot_owner"] == (len(tkinds) - tkinds.count("dense")) \
+        * steps, main
+    assert main["list_sum"] > 0 or forecasting, main
     temporal_profile_steps(trainer, card)
     temporal_eval_check(trainer, tag, card)
     kernel["gather"] = gather_kernels_check(trainer, pred, queries, main,
                                             steps, tag, card)
+    kernel["hop_index"] = hop_index_check(trainer, pred, queries, main,
+                                          steps, tag, card)
+    kernel["hop_index"]["slot_owner"]["served"] = served["slot_owner"]
     kernel.update(serve_ms=float(np.mean(times)), step_ms=step_ms,
                   walk_s=walk_s, walks=walks, serve_peak=peak,
                   train_peak=train_peak)
@@ -3354,10 +3642,10 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=["7g"],
-                    help="run phase 7g alone (after phases 1-2); prints its "
-                    "times as one JSON line, and no 'ok' line")
-    ap.add_argument("--tree", help="with --phase 7g: a checkout of another "
+    ap.add_argument("--phase", choices=["7g", "7h"],
+                    help="run phase 7g or 7h alone (after phases 1-2); "
+                    "prints its times as one JSON line, and no 'ok' line")
+    ap.add_argument("--tree", help="with --phase: a checkout of another "
                     "commit (e.g. the parent, unpacked by git archive); its "
                     "own chip_smoke.py and package run the phase")
     args = ap.parse_args(argv)
@@ -3365,7 +3653,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is available; this script "
               "measures the port on an NVIDIA GPU", file=sys.stderr)
         return 2
-    if args.phase == "7g":
+    if args.phase:
         mod = sys.modules[__name__]
         if args.tree:
             import importlib
@@ -3377,12 +3665,15 @@ def main(argv=None) -> int:
                 os.path.abspath(args.tree), mod.__file__
         _, smi = mod.phase_device()
         mod.phase_build()
-        times = phase_gather_alone(mod, smi)
-        log(json.dumps({"phase": "7g", "tree": args.tree or ".",
-                        "card": smi, "gather": times}))
+        if args.phase == "7g":
+            res = {"gather": phase_gather_alone(mod, smi)}
+        else:
+            res = {"cells": phase_hop_alone(mod, smi)}
+        log(json.dumps({"phase": args.phase, "tree": args.tree or ".",
+                        "card": smi, **res}))
         return 0
     elif args.tree:
-        ap.error("--tree needs --phase 7g")
+        ap.error("--tree needs --phase")
     t_start = time.perf_counter()
     last = [t_start]
 
@@ -3400,7 +3691,8 @@ def main(argv=None) -> int:
         kg, _, model, pred = build_slice(tmp, "cuda", **KERNEL_SLICE)
         queries = serving_queries(kg, N_BATCHES * pred.batch)
         kernel = phase_kernel(pred, queries[:pred.batch], card)
-        kernel["launches"] = phase_slice(kg, model, pred, queries, card)
+        kernel["launches"], family_owner = phase_slice(kg, model, pred,
+                                                       queries, card)
         kernel["train_launches"], kernel["train_hops"] = phase_train(tmp,
                                                                      card)
         phase_family_defaults(tmp, card)
@@ -3466,6 +3758,27 @@ def main(argv=None) -> int:
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"), "bound_by": "bytes",
             "library_ms": total("library_ms")})
+    # phase 7h's kernels: list_sum over one 7a train step's dense calls
+    # (launches over the trainer's 2 x 16 steps), slot_owner over one 7c
+    # served batch's hops (launches over the 8 served batches)
+    hop = {e: kernel["temporal"][e]["hop_index"] for e in kernel["temporal"]}
+    picks = {"list_sum": (hop["ICEWS14_TeMP"]["list_sum"]["train"],
+                          hop["ICEWS14_TeMP"]["list_sum"]["launches"],
+                          kernel["dense"]["list_sum"]),
+             "slot_owner": (hop["ICEWS14_forecasting"]["slot_owner"]["serve"],
+                            hop["ICEWS14_forecasting"]["slot_owner"]["served"],
+                            family_owner)}
+    for kname, where in HOP_INDEX_KERNELS.items():
+        rows, launches, more = picks[kname]
+        checked = more + [r for h in hop.values() for k in ("serve", "train")
+                          for r in h[kname][k]]
+        entries.append({
+            "name": kname, "route": "cuda", **where, "launches": launches,
+            "max_abs_err": max([0.0] + [r["max_abs_err"] for r in checked]),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
+            "library_ms": sum(r["library_ms"] for r in rows)})
     log(json.dumps({"kernels": entries}))
     assert name == torch.cuda.get_device_name(0), name
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,9 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+# every csrc/<name>.cu the port launches
+KERNELS = ("segment_sum_sorted", "range_sum", "take_rows_grad", "list_sum",
+           "slot_owner")
 
 
 def _nvcc() -> str:

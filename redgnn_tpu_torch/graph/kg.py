@@ -50,17 +50,28 @@ def build_tail_sorted(rowptr: np.ndarray, rel: np.ndarray,
     return heads[order], rel[order], tail[order], tail_rowptr
 
 
+def build_src_order(tsrc: np.ndarray) -> np.ndarray:
+    """The stable order of a tail-sorted table's sources, int32: the
+    edges of source v, in table order, at ``rowptr[v]:rowptr[v + 1]`` of
+    it (``tsrc`` is a permutation of the CSR's heads, so the CSR's own
+    ``rowptr`` gives the rows). The list the dense hop's gather backward
+    sums by (`ops.gather.gather_rows_listed`)."""
+    return np.argsort(tsrc, kind="stable").astype(np.int32)
+
+
 class DeviceGraph:
     """Device-resident CSR fact graph (+ self-loops), int32 tensors.
 
     ``tsrc/trel/ttail/tail_rowptr`` (optional) are the tail-sorted view
-    of dense-mode hops; graphs built without them disable dense mode."""
+    of dense-mode hops; graphs built without them disable dense mode.
+    ``tsrc_order`` (optional) is `build_src_order` of ``tsrc``: a dense
+    hop's gather backward on a CUDA device needs it."""
 
     FIELDS = ("rowptr", "rel", "tail", "tsrc", "trel", "ttail",
-              "tail_rowptr")
+              "tail_rowptr", "tsrc_order")
 
     def __init__(self, rowptr, rel, tail, tsrc=None, trel=None, ttail=None,
-                 tail_rowptr=None):
+                 tail_rowptr=None, tsrc_order=None):
         self.rowptr = rowptr
         self.rel = rel
         self.tail = tail
@@ -68,6 +79,7 @@ class DeviceGraph:
         self.trel = trel
         self.ttail = ttail
         self.tail_rowptr = tail_rowptr
+        self.tsrc_order = tsrc_order
 
     @property
     def n_edges(self) -> int:
@@ -96,7 +108,8 @@ class DeviceGraph:
         dev = resolve_device(device)
         dense = build_tail_sorted(rowptr, rel, tail, n_ent)
         return cls(*(torch.as_tensor(np.asarray(a, np.int32), device=dev)
-                     for a in (rowptr, rel, tail, *dense)))
+                     for a in (rowptr, rel, tail, *dense,
+                               build_src_order(dense[0]))))
 
     @classmethod
     def from_triples(cls, triples: np.ndarray, n_ent: int,

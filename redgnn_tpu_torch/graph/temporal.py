@@ -28,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from redgnn_tpu_torch.graph.kg import DeviceGraph
+from redgnn_tpu_torch.graph.kg import DeviceGraph, build_src_order
 from redgnn_tpu_torch.utils.device import resolve_device
 
 
@@ -306,7 +306,10 @@ class TemporalKG:
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
 
-        self.graph = DeviceGraph(dev(rowptr), dev(rel), dev(tail))
+        # the dense hop's gather backward sums by the sources' order
+        self.graph = DeviceGraph(
+            dev(rowptr), dev(rel), dev(tail),
+            tsrc_order=dev(build_src_order(self.dense_np[0])))
         self.etime = dev(time)
         self.ekey = dev(ekey)
         self.selfloop_slot = dev(selfloop_slot)

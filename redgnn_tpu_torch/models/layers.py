@@ -41,7 +41,11 @@ import torch
 from torch import nn
 
 from redgnn_tpu_torch.ops.frontier import Frontier
-from redgnn_tpu_torch.ops.gather import gather_bf16, take_rows
+from redgnn_tpu_torch.ops.gather import (
+    gather_bf16,
+    gather_rows_listed,
+    take_rows,
+)
 from redgnn_tpu_torch.ops.segment import segment_sum
 from redgnn_tpu_torch.parallel.mesh import all_reduce_sum
 
@@ -209,13 +213,19 @@ class RelAttnLayer(nn.Module):
     def dense(self, hidden_dense: torch.Tensor, visited: torch.Tensor,
               q_rel: torch.Tensor, tsrc: torch.Tensor, trel: torch.Tensor,
               ttail: torch.Tensor, tail_rowptr: torch.Tensor,
-              dense_agg: str = "sorted_scatter"):
+              dense_agg: str = "sorted_scatter",
+              tsrc_order: torch.Tensor | None = None,
+              rowptr: torch.Tensor | None = None):
         """One hop over the ENTIRE tail-sorted edge table, batch-shared
         (saturated-frontier regime).
 
         hidden_dense: (n_ent, b, d); visited: (n_ent, b) bool. Returns
         (act(W_h agg) (n_ent, b, d), new_visited (n_ent, b), live-edge
-        count). ``dense_agg='sorted_scatter'`` sums the (E, b*d) messages
+        count). The packed (state, visited) rows are gathered by
+        `gather_rows_listed`, whose backward sums each source's edges
+        through ``tsrc_order`` and the CSR's ``rowptr`` (the graph's): the
+        list-sum kernel on a CUDA device, which needs both; the CPU does
+        not. ``dense_agg='sorted_scatter'`` sums the (E, b*d) messages
         and the (E, b) live flags by ``ttail`` through `segment_sum` with
         the layer's ``segment_impl`` (``ttail`` is ascending, so 'pallas'
         is the sorted-segment-sum kernel); ``'cumsum'`` takes differences
@@ -235,7 +245,11 @@ class RelAttnLayer(nn.Module):
         # (in bf16 the bit stays an exact 0 / 1)
         packed = torch.cat(
             [hidden_dense, visited[:, :, None].to(hidden_dense.dtype)], -1)
-        g = self._rows(packed, tsrc)                  # (E, b, d+1)
+        # in float32 the table's own dtype, as `_rows` (a float64
+        # referee's table stays float64)
+        g = gather_rows_listed(
+            packed, tsrc, tsrc_order, rowptr,
+            None if self.cdt == torch.float32 else self.cdt)  # (E, b, d+1)
         hs = g[..., :d]
         live = g[..., d] > 0.5                        # (E, b)
 

@@ -226,7 +226,8 @@ class RedGNN(nn.Module):
                 hd, vis = dense_state
                 new_hidden, new_vis, n_live = layer.dense(
                     hd, vis, rels, graph.tsrc, graph.trel, graph.ttail,
-                    graph.tail_rowptr, cfg.dense_agg)
+                    graph.tail_rowptr, cfg.dense_agg, graph.tsrc_order,
+                    graph.rowptr)
                 if drop:
                     new_hidden = _dropout(new_hidden, cfg.dropout, generator)
                 # GRU carry: hd is zero at never-visited nodes, exactly

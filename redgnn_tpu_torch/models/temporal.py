@@ -66,7 +66,7 @@ from redgnn_tpu_torch.ops.frontier import (
     expand_frontier_ranges,
     scatter_drop,
 )
-from redgnn_tpu_torch.ops.gather import take_rows
+from redgnn_tpu_torch.ops.gather import gather_rows_listed, take_rows
 from redgnn_tpu_torch.ops.segment import segment_softmax, segment_sum
 from redgnn_tpu_torch.utils.device import resolve_device
 
@@ -324,7 +324,8 @@ class TRedGNN(nn.Module):
                             tslot[:, None] == excl[None, :], dim=1)
                 dense_state, n_nodes, n_edges = self._dense_hop(
                     dense_state, rela, a1_k, a2_k, rels, times, tsrc, trel,
-                    ttime, ttail, tail_rowptr, excl_keep,
+                    ttime, ttail, tail_rowptr, graph.tsrc_order,
+                    graph.rowptr, excl_keep,
                     generator if drop_dense else None,
                     generator if edrop else None)
                 aux["edge_overflow"].append(false)
@@ -510,13 +511,16 @@ class TRedGNN(nn.Module):
                 scatter_drop(n * b, flat, valid, False).view(n, b))
 
     def _dense_hop(self, state, rela, a1_k, a2_k, rels, times, tsrc, trel,
-                   ttime, ttail, tail_rowptr, excl_keep, drop_gen,
-                   edrop_gen):
+                   ttime, ttail, tail_rowptr, tsrc_order, rowptr, excl_keep,
+                   drop_gen, edrop_gen):
         """One hop over the whole tail-sorted edge table, shared by the
         batch (saturated-frontier regime; `temporal.py:461-572`): the
         sparse hop's math with edge metadata read in order, one packed
         (d+1)-wide row gather per edge for the batch, and aggregation over
-        the static per-tail ranges."""
+        the static per-tail ranges. The gather's backward sums each
+        source's edges through ``tsrc_order`` and the CSR's ``rowptr``
+        (`gather_rows_listed`: the list-sum kernel on a CUDA device, which
+        raises without them)."""
         cfg = self.cfg
         hidden_dense, visited = state
         d = cfg.hidden_dim
@@ -526,7 +530,8 @@ class TRedGNN(nn.Module):
         # pack the visited bit as an extra channel: one gather serves both
         packed = torch.cat(
             [hidden_dense, visited[:, :, None].to(hidden_dense.dtype)], -1)
-        g = packed[tsrc.long()]                      # (E, b, d+1)
+        g = gather_rows_listed(packed, tsrc, tsrc_order,
+                               rowptr)               # (E, b, d+1)
         hs = g[..., :d]
         live = g[..., d] > 0.5                       # (E, b)
 

@@ -14,14 +14,23 @@ for the same input. Scatters never raise on out-of-range slots (as JAX's
 ``mode="drop"``): dropped writes go to one spare slot past the end that
 is cut off, so the expansion needs no host synchronisation. Index
 arithmetic is int64 inside (JAX: int32; the values agree).
+
+The owner of each output edge slot (`slot_owner`) is a search of the
+slot in the degree cumsum: on a CUDA device the hand-written kernel
+``csrc/slot_owner.cu``, on the CPU ``torch.searchsorted``. The JAX
+package scatters a marker at each node's first slot and fills the rest
+with ``cummax`` (a search lowers slowly on a TPU); the integers are the
+same.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from redgnn_tpu_torch import _build
 from redgnn_tpu_torch.ops.gather import gather_rows_packed
 
 # Padding key. Max int32 so that padded entries sort to the end.
@@ -72,6 +81,60 @@ def scatter_drop(size: int, idx: torch.Tensor, values: torch.Tensor,
                      dtype=values.dtype, device=values.device)
     out[idx] = values
     return out[:size]
+
+
+def slot_owner_plain(cum: torch.Tensor, edge_cap: int) -> torch.Tensor:
+    """`slot_owner` in plain PyTorch: ``searchsorted(cum, min(e, total -
+    1), right=True)`` over the slots ``e``, ``total`` kept on the device
+    (the CPU path and the card's yardstick)."""
+    e = torch.arange(edge_cap, dtype=torch.int64, device=cum.device)
+    return torch.searchsorted(cum, torch.minimum(e, cum[-1] - 1), right=True)
+
+
+def slot_owner_cummax(cum: torch.Tensor, edge_cap: int) -> torch.Tensor:
+    """`slot_owner` the JAX package's way: each node with edges marks its
+    first slot (starts strictly increase, so marks never collide) and a
+    cummax fills the slots after it (tests and the card's smoke run)."""
+    p = cum.shape[0]
+    deg = torch.diff(cum, prepend=cum.new_zeros(1))
+    start = cum - deg
+    mark_at = torch.where((deg > 0) & (start < edge_cap), start, edge_cap)
+    marker = scatter_drop(edge_cap, mark_at,
+                          torch.arange(p, device=cum.device), 0)
+    return torch.cummax(marker, 0).values
+
+
+def slot_owner(cum: torch.Tensor, edge_cap: int) -> torch.Tensor:
+    """Owner of each of ``edge_cap`` output edge slots: slot ``e`` belongs
+    to the first node ``i`` with ``cum[i] > min(e, total - 1)``, ``total =
+    cum[-1]`` (slots past the total take the last node with edges; every
+    slot 0 when total is 0), as the JAX package's scatter-and-cummax fill.
+
+    cum: (P,) int64, the inclusive cumsum of nonnegative degrees, P >= 1.
+    Returns (edge_cap,) int64. A CUDA tensor launches the kernel
+    (``csrc/slot_owner.cu``, counted in ``slot_owner.launches``), which
+    reads ``total`` on the device (no host synchronisation); a CPU tensor
+    takes `slot_owner_plain`."""
+    if cum.dim() != 1 or cum.shape[0] == 0 or cum.dtype != torch.int64:
+        raise ValueError(f"slot_owner wants a non-empty (P,) int64 cumsum, "
+                         f"got {tuple(cum.shape)} {cum.dtype}")
+    if cum.device.type == "cpu":
+        return slot_owner_plain(cum, edge_cap)
+    cum = cum.contiguous()
+    out = torch.empty(edge_cap, dtype=torch.int64, device=cum.device)
+    if edge_cap == 0:
+        return out
+    fn = _build.entry("slot_owner", "slot_owner_i64",
+                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_void_p])
+    _build.launch(fn, (cum.data_ptr(), out.data_ptr(), cum.shape[0],
+                       edge_cap), cum,
+                  f"slot_owner ({cum.shape[0]} nodes, {edge_cap} slots)")
+    slot_owner.launches += 1
+    return out
+
+
+slot_owner.launches = 0
 
 
 def expand_frontier(
@@ -151,13 +214,8 @@ def expand_frontier_ranges(
     start = cum - deg_eff
 
     e_idx = torch.arange(edge_cap, dtype=torch.int64, device=dev)
-    # Owner of each output edge slot: every node with deg > 0 marks its
-    # start (starts are strictly increasing, so marks never collide) and
-    # a cummax fills the slots after it.
-    mark_at = torch.where((deg_eff > 0) & (start < edge_cap), start, edge_cap)
-    marker = scatter_drop(
-        edge_cap, mark_at, torch.arange(prev_cap, device=dev), 0)
-    src = torch.cummax(marker, 0).values
+    # owner of each output edge slot: a search of the slot in cum
+    src = slot_owner(cum, edge_cap)
     edge_valid = e_idx < total_edges
     src_c = torch.clamp(src, max=prev_cap - 1)
 

@@ -15,6 +15,14 @@ full fp32: with TF32 matmuls it would round the gradient to 10 mantissa
 bits, so the backward refuses to run on a CUDA device while
 ``torch.backends.cuda.matmul.allow_tf32`` is set.
 
+``gather_rows_listed`` is the dense hop's packed-row gather
+``packed[tsrc]``: a plain gather forward, and a backward that sums each
+table row's edges through a list given with the graph (the stable order
+of ``tsrc`` and the CSR's own row offsets), `list_sum`: on a CUDA device
+the hand-written kernel ``csrc/list_sum.cu`` (the share pass of the two
+kernels above, no atomics, one order fixed by shapes), on the CPU the
+``index_put_(accumulate=True)`` that autograd of the plain gather takes.
+
 ``take_rows_sorted`` and ``gather_rows_packed`` serve bitmap-dedup hops,
 whose index vector is non-decreasing. ``gather_rows_packed``'s backward
 sums each row's range of the gradient, `range_sum`: on a CUDA device the
@@ -25,10 +33,11 @@ package's difference of the gradient's float32 prefix sum
 gradients carry O(total magnitude * eps) noise: fine for training, not
 for a strict gradient comparison (``scan_src_backward=False`` there).
 ``take_rows_sorted``'s backward is that prefix-sum difference on every
-device. `range_sum_reference` (float64) is the yardstick the kernel is
-held to; `range_sum_model` and `scatter_rows_add_model` repeat the two
-kernels' summation order in plain PyTorch. Only tests and the card's
-smoke run call those three.
+device. `range_sum_reference` and `list_sum_reference` (float64) are the
+yardsticks the kernels are held to; `range_sum_model`,
+`scatter_rows_add_model` and `list_sum_model` repeat the three kernels'
+summation order in plain PyTorch. Only tests and the card's smoke run
+call those five.
 
 bfloat16 compute (``compute_dtype="bfloat16"``) gathers rows of bf16
 copies of float32 tensors. The backward of such a gather adds the bf16
@@ -87,6 +96,12 @@ class RangePlan(NamedTuple):
     blocks: int  # blocks of the share and fix-up passes
 
 
+class ListPlan(NamedTuple):
+    tile: int    # columns a block of the share pass sums
+    share: int   # list positions a warp of the share pass sums
+    blocks: int  # blocks of the share and fix-up passes
+
+
 def share_slots(n: int) -> int:
     """Positions a warp of the share pass sums, for a list of ``n``: the
     power of two at or below ``n / (SHARE_WARPS * SHARE_TARGET_BLOCKS)``
@@ -126,6 +141,17 @@ def _range_plan(n: int, p: int, dim: int) -> RangePlan:
     share = share_slots(n)
     return RangePlan(min(max(dim, 1), SHARE_MAX_COLS), share,
                      -(-p // RANGE_SCAN_ROWS), _blocks(n, share))
+
+
+def _list_plan(e: int, n: int, w: int) -> ListPlan | None:
+    """The list-sum kernel's launch plan for a list of ``e`` positions
+    into ``n`` rows of width ``w``, or None where the kernel's int32
+    positions and rows do not reach (``e`` or ``n`` at 2^31 or more): a
+    function of (e, n, w) alone."""
+    if e >= 2 ** 31 or n >= 2 ** 31:
+        return None
+    share = share_slots(e)
+    return ListPlan(min(max(w, 1), SHARE_MAX_COLS), share, _blocks(e, share))
 
 
 def _copy_bytes(g: torch.Tensor, tile: int) -> int:
@@ -481,6 +507,157 @@ def range_sum(g: torch.Tensor, start: torch.Tensor,
 
 
 range_sum.launches = 0
+
+
+def _list_check(g: torch.Tensor, order: torch.Tensor, off: torch.Tensor):
+    if g.dim() != 2 or order.shape != g.shape[:1] or off.dim() != 1 \
+            or off.shape[0] < 1:
+        raise ValueError(f"list sum wants g (E, W), order (E,) and off "
+                         f"(N + 1,), got {tuple(g.shape)}, "
+                         f"{tuple(order.shape)} and {tuple(off.shape)}")
+
+
+def _list_rows(off: torch.Tensor) -> torch.Tensor:
+    """The row of each listed position, (off[-1],) int64."""
+    n = off.shape[0] - 1
+    return torch.repeat_interleave(torch.arange(n, device=off.device),
+                                   torch.diff(off.long()))
+
+
+def list_sum_model(g: torch.Tensor, order: torch.Tensor, off: torch.Tensor,
+                   plan: ListPlan | None = None) -> torch.Tensor:
+    """`list_sum` in the kernel's order, in plain PyTorch (tests and the
+    card's smoke run): the listed slots' rows in list order, then
+    `_share_order_sum` at the plan's share (`_list_plan`, or ``plan``)."""
+    _list_check(g, order, off)
+    e, w = g.shape
+    n = off.shape[0] - 1
+    if plan is None:
+        plan = _list_plan(e, n, w)
+    rows = _list_rows(off)
+    x = g[order[:rows.shape[0]].long()].to(torch.float32)
+    return _share_order_sum(x, rows, plan.share, n)
+
+
+def list_sum_reference(g: torch.Tensor, order: torch.Tensor,
+                       off: torch.Tensor) -> torch.Tensor:
+    """`list_sum` in float64 by ``index_add_``: the yardstick the kernel
+    is held to (tests and the card's smoke run); returns (N, W)
+    float64."""
+    _list_check(g, order, off)
+    rows = _list_rows(off)
+    out = torch.zeros((off.shape[0] - 1, g.shape[1]), dtype=torch.float64,
+                      device=g.device)
+    return out.index_add_(0, rows, g[order[:rows.shape[0]].long()].double())
+
+
+def list_sum(g: torch.Tensor, order: torch.Tensor,
+             off: torch.Tensor) -> torch.Tensor:
+    """Row ``v`` of the result: the float32 sum of ``g[order[t]]`` over
+    ``t`` in ``[off[v], off[v + 1])`` (0 for an empty row). The backward
+    of `gather_rows_listed`.
+
+    g: (E, W) float32; order: (E,) int32, each list position's slot of g
+    (a permutation); off: (N + 1,) int32, the rows' first positions,
+    ``off[0] = 0``, ``off[N] <= E``. Returns (N, W) float32. A CUDA tensor
+    launches the kernel (``csrc/list_sum.cu``, counted in
+    ``list_sum.launches``), which adds in a fixed order (`list_sum_model`)
+    and raises on what it does not take (another dtype, 2^31 positions or
+    more); a CPU tensor takes ``index_put_(accumulate=True)`` of the
+    listed rows by their row."""
+    _list_check(g, order, off)
+    e, w = g.shape
+    n = off.shape[0] - 1
+    if g.device.type == "cpu":
+        rows = _list_rows(off)
+        return g.new_zeros((n, w), dtype=torch.float32).index_put_(
+            (rows,), g[order[:rows.shape[0]].long()].to(torch.float32),
+            accumulate=True)
+    if g.dtype != torch.float32:
+        raise TypeError(f"list_sum sums float32 rows, got {g.dtype}")
+    if order.dtype != torch.int32 or off.dtype != torch.int32:
+        raise TypeError(f"list_sum takes int32 order and off, got "
+                        f"{order.dtype} and {off.dtype}")
+    plan = _list_plan(e, n, w)
+    if plan is None:
+        raise ValueError(f"list_sum: the kernel takes fewer than 2^31 "
+                         f"positions and rows, got {e} and {n}")
+    g, order, off = g.contiguous(), order.contiguous(), off.contiguous()
+    if n == 0 or w == 0 or e == 0:
+        return g.new_zeros((n, w))
+    out = g.new_empty((n, w))
+    tails = torch.empty(plan.blocks, dtype=torch.int32, device=g.device)
+    bpart = g.new_empty((plan.blocks, 2, w))
+    fn = _build.entry("list_sum", "list_sum_f32",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    _build.launch(fn, (g.data_ptr(), order.data_ptr(), off.data_ptr(),
+                       out.data_ptr(), tails.data_ptr(), bpart.data_ptr(), e,
+                       w, n, plan.tile, plan.share,
+                       _copy_bytes(g, plan.tile)), g,
+                  f"list_sum ({e} positions, {n} rows of {w})")
+    list_sum.launches += 1
+    return out
+
+
+list_sum.launches = 0
+
+
+class _GatherRowsListed(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, table, idx, order, off, dtype):
+        i = idx.long()
+        ctx.save_for_backward(i, order, off)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table.to(dtype)[i]
+
+    @staticmethod
+    def backward(ctx, g):
+        i, order, off = ctx.saved_tensors
+        shape = ctx.table_shape
+        # bf16 cotangents are summed in float32 (a float64 one stays)
+        flat = g.reshape(i.shape[0], -1).to(
+            torch.promote_types(g.dtype, torch.float32))
+        if g.device.type == "cpu":
+            d_table = flat.new_zeros((shape[0], flat.shape[1])).index_put_(
+                (i,), flat, accumulate=True)
+        else:
+            d_table = list_sum(flat.contiguous(), order, off)
+        return (d_table.reshape(shape).to(ctx.table_dtype), None, None,
+                None, None)
+
+
+def gather_rows_listed(table: torch.Tensor, idx: torch.Tensor,
+                       order: torch.Tensor | None, off: torch.Tensor | None,
+                       dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``table.to(dtype)[idx]`` (``dtype`` None: the table's own) whose
+    backward sums each table row's
+    cotangents through a list given with the index: ``order`` lists the
+    slots of ``idx`` row by row, ``off`` gives each row's first place in
+    it (for the dense hop's ``tsrc``: `graph.kg.build_src_order` and the
+    CSR's ``rowptr``).
+
+    Forward: a plain gather (in bf16 the rows of the bf16 copy). Backward:
+    the float32 cotangent (a bf16 one cast up), summed by `list_sum`, the
+    kernel, on a CUDA device; on the CPU ``index_put_(accumulate=True)``
+    over ``idx``, what autograd of the plain gather computes (a float64
+    table, a CPU referee's, sums in float64). So in bf16 the table gets
+    the float32 sum of the rows' bf16 cotangents, as `gather_bf16` gives
+    it. A CUDA call without the list raises, and so does a float64 one
+    (the kernel sums float32).
+
+    table: (R, ...) float; idx: (E,) int in [0, R); order: (E,) int32, the
+    stable argsort of ``idx``; off: (R + 1,) int32, the bincount of
+    ``idx``'s scan. Returns (E,) + table.shape[1:] in ``dtype``."""
+    if table.device.type != "cpu" and (order is None or off is None):
+        raise ValueError("gather_rows_listed on a CUDA device needs the "
+                         "index's list (order, off): build the graph with "
+                         "DeviceGraph.from_csr, which sets tsrc_order")
+    dtype = table.dtype if dtype is None else dtype
+    if table.requires_grad and torch.is_grad_enabled():
+        return _GatherRowsListed.apply(table, idx, order, off, dtype)
+    return table.to(dtype)[idx.long()]
 
 
 class _GatherRowsPacked(torch.autograd.Function):

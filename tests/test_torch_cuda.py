@@ -1,6 +1,7 @@
 """Card tests of the port: the CUDA kernels (the sorted-segment sum and its
 backward, the gather primitives' backwards: the range sum and the
-small-table scatter-add) against their plain versions, a small model and a
+small-table scatter-add; the hop's index kernels: the slot owner and the
+dense hop's listed gather backward) against their plain versions, a small model and a
 train step on the card against the CPU, and run-to-run determinism of
 training.
 
@@ -380,6 +381,163 @@ def test_gather_rows_packed_backward_launches_the_kernel(card):
     m = torch.from_numpy(count).to(card)
     _sum_bound(v.grad, gather.range_sum_reference(w, st, ct),
                gather.range_sum_reference(w.abs(), st, ct), m)
+
+
+# ------------------------------------------------ the hop's index kernels
+
+def _owner_cum(rng, kind, p=110_336):
+    """(cum, edge_cap): the inclusive degree cumsum of a P-node frontier
+    (Zipf degrees, a tenth zero, SENTINEL pads at the end) and a slot
+    capacity, by the contract's cases."""
+    deg = np.minimum(rng.zipf(1.5, p), 3_000)
+    deg[rng.random(p) < 0.1] = 0
+    deg[-p // 8:] = 0  # pads
+    if kind == "zero":
+        deg[:] = 0
+    elif kind == "hub":
+        deg[17] = 200_000
+    elif kind == "sparse_owners":  # spans past a block's stage
+        deg[:] = 0
+        deg[rng.choice(p, 40, replace=False)] = rng.integers(1, 5_000, 40)
+    total = int(deg.sum())
+    cap = {"overflow": total // 3, "zero": 4_097}.get(kind, total + 12_345)
+    return torch.from_numpy(np.cumsum(deg).astype(np.int64)), cap
+
+
+@pytest.mark.parametrize("kind", ["random", "zero", "hub", "overflow",
+                                  "sparse_owners"])
+def test_slot_owner_kernel_matches_plain(card, kind):
+    """The slot-owner kernel at a 7c served hop's size (110,336 nodes, ~1.7M
+    slots) against its plain twin (searchsorted) and the scatter-and-cummax
+    route, bit for bit, one launch a call; and with no host sync."""
+    from redgnn_tpu_torch.ops import frontier
+
+    rng = np.random.default_rng(21)
+    cum, cap = _owner_cum(rng, kind)
+    cum = cum.to(card)
+    before = frontier.slot_owner.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = frontier.slot_owner(cum, cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert frontier.slot_owner.launches == before + 1
+    assert got.dtype == torch.int64 and got.shape == (cap,)
+    assert torch.equal(got, frontier.slot_owner_plain(cum, cap))
+    assert torch.equal(got, frontier.slot_owner_cummax(cum, cap))
+    assert frontier.slot_owner(cum, 0).shape == (0,)
+
+
+def test_expansion_on_card_fills_owners_by_the_kernel(card):
+    """expand_frontier on the card launches the slot-owner kernel once and
+    gives the CPU's integers."""
+    from redgnn_tpu_torch.ops import frontier
+
+    rng = np.random.default_rng(22)
+    n_ent = 300
+    tri = np.stack([rng.integers(0, n_ent, 4_000), rng.integers(0, 8, 4_000),
+                    rng.integers(0, n_ent, 4_000)], 1)
+    rowptr, rel, tail = build_csr(tri, n_ent)
+    keys = np.full(64, frontier.SENTINEL, np.int32)
+    keys[:50] = np.sort(rng.choice(4 * n_ent, 50, replace=False))
+    out = []
+    for dev in ("cpu", card):
+        before = frontier.slot_owner.launches
+        fr = frontier.expand_frontier(
+            *(torch.from_numpy(a).to(dev) for a in (rowptr, rel, tail)),
+            n_ent, torch.from_numpy(keys).to(dev), edge_cap=2_048,
+            node_cap=1_024, dedup_impl="bitmap", key_space=4 * n_ent)
+        assert frontier.slot_owner.launches == before + (dev != "cpu")
+        out.append(fr)
+    for name in ("src", "dst", "edge_id", "edge_valid", "node_keys"):
+        assert torch.equal(getattr(out[1], name).cpu(),
+                           getattr(out[0], name)), name
+
+
+def _list_case(rng, e, n, w, hub):
+    live = np.flatnonzero(rng.random(n) < 0.67)
+    cnt = np.bincount(rng.choice(live, e - hub), minlength=n)
+    cnt[n // 2] += hub
+    off = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int32)
+    return (torch.from_numpy(rng.permutation(e).astype(np.int32)),
+            torch.from_numpy(off))
+
+
+@pytest.mark.parametrize("e,n,w,hub", [(152_780, 7_128, 672, 9_000),
+                                       (10_567, 135, 980, 2_000),
+                                       (40_000, 3_000, 20, 30_000),
+                                       (40_000, 3_000, 33, 0),
+                                       (3, 2, 672, 0)])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_list_sum_kernel_matches_model(card, e, n, w, hub, misaligned):
+    """The list-sum kernel at the dense hops' widths (7a: 152,780 edges
+    into 7,128 rows of 672; umls: 980) and odd ones, a hub, a third of the
+    rows empty, 16-byte aligned or not: within the rounding bound of
+    float64, bit-equal to `list_sum_model` and on a second call."""
+    from redgnn_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(23)
+    order, off = _list_case(rng, e, n, w, hub)
+    buf = torch.from_numpy(
+        rng.normal(size=e * w + 1).astype(np.float32)).to(card)
+    g = buf[1:].view(e, w) if misaligned else buf[:-1].view(e, w)
+    order, off = order.to(card), off.to(card)
+    before = gather.list_sum.launches
+    got = gather.list_sum(g, order, off)
+    again = gather.list_sum(g, order, off)
+    torch.cuda.synchronize()
+    assert gather.list_sum.launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert torch.equal(got, gather.list_sum_model(g, order, off))
+    m = torch.diff(off.long())
+    _sum_bound(got, gather.list_sum_reference(g, order, off),
+               gather.list_sum_reference(g.abs(), order, off), m)
+    assert bool((got[m == 0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_hop_backward_launches_list_sum(card, dtype):
+    """RelAttnLayer.dense on the card takes the packed rows' gradient
+    through the list-sum kernel (one launch a backward), in float32 and
+    bf16; the dense states' gradient lies within rtol 1e-4 + 1e-5·max of
+    the CPU's (bf16: 2e-2·max, as the bf16 step's gradients are held, since
+    a float32 difference upstream may flip a bf16 cotangent's rounding).
+    Without the graph's list it raises."""
+    from redgnn_tpu_torch.models.layers import RelAttnLayer
+    from redgnn_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(24)
+    n_ent, b, d = 60, 5, 16
+    tri = np.stack([rng.integers(0, n_ent, 900), rng.integers(0, 8, 900),
+                    rng.integers(0, n_ent, 900)], 1)
+    csr = build_csr(tri, n_ent)
+    vis = torch.from_numpy(rng.random((n_ent, b)) < 0.5)
+    hd = torch.from_numpy(rng.normal(size=(n_ent, b, d)).astype(np.float32))
+    q_rel = torch.from_numpy(rng.integers(0, 8, b).astype(np.int32))
+    w = torch.from_numpy(rng.normal(size=(n_ent, b, d)).astype(np.float32))
+    layer = RelAttnLayer(d, 5, 4, compute_dtype=dtype,
+                         generator=torch.Generator().manual_seed(0))
+    grads = []
+    for dev in ("cpu", card):
+        g = DeviceGraph.from_csr(*csr, n_ent, device=dev)
+        lay = layer.to(dev)
+        h = hd.to(dev, copy=True).requires_grad_()
+        before = gather.list_sum.launches
+        out, _, _ = lay.dense(h, vis.to(dev), q_rel.to(dev), g.tsrc, g.trel,
+                              g.ttail, g.tail_rowptr, "sorted_scatter",
+                              g.tsrc_order, g.rowptr)
+        (out * w.to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        assert gather.list_sum.launches == before + (dev != "cpu")
+        grads.append(h.grad.cpu())
+        if dev != "cpu":
+            with pytest.raises(ValueError, match="tsrc_order"):
+                lay.dense(h, vis.to(dev), q_rel.to(dev), g.tsrc, g.trel,
+                          g.ttail, g.tail_rowptr)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-4,
+                               atol=tol * float(grads[0].abs().max()))
 
 
 @pytest.mark.parametrize("r", [16, 32, 462, 475])

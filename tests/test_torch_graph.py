@@ -38,9 +38,14 @@ def test_build_csr_and_tail_sorted_equal(rng):
 
 
 def _assert_graph_equal(tgraph, jgraph):
+    """Every field the JAX graph has, equal; the port's own list of the
+    dense hop's gather backward (``tsrc_order``, which JAX's graph lacks)
+    is the stable order of the equal ``tsrc``."""
     for f in tkg.DeviceGraph.FIELDS:
-        g, w = getattr(tgraph, f), getattr(jgraph, f)
+        g = getattr(tgraph, f)
         assert g.dtype == torch.int32
+        w = (tkg.build_src_order(np.asarray(jgraph.tsrc))
+             if f == "tsrc_order" else getattr(jgraph, f))
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f)
 
 

@@ -26,7 +26,7 @@ from redgnn_tpu_torch.cli.train import main as cli_main
 from redgnn_tpu_torch.cli.train import parse_overrides
 from redgnn_tpu_torch.graph import calibrate as tcal
 from redgnn_tpu_torch.graph.inductive import InductiveKG
-from redgnn_tpu_torch.graph.kg import StaticKG, filters_of
+from redgnn_tpu_torch.graph.kg import StaticKG, build_src_order, filters_of
 from redgnn_tpu_torch.models import redgnn as tmodel
 from redgnn_tpu_torch.serve import Predictor
 from redgnn_tpu_torch.train import loop as tloop
@@ -751,8 +751,12 @@ def test_inductive_kg_matches_jax(ind_dir):
         g, w = getattr(got, name), getattr(want, name)
         assert g.device.type == "cpu"
         for f in g.FIELDS:
-            np.testing.assert_array_equal(getattr(g, f).numpy(),
-                                          np.asarray(getattr(w, f)), err_msg=f)
+            # tsrc_order: the port's own list (the dense hop's gather
+            # backward), the stable order of JAX's tsrc
+            want_f = (build_src_order(np.asarray(w.tsrc))
+                      if f == "tsrc_order" else np.asarray(getattr(w, f)))
+            np.testing.assert_array_equal(getattr(g, f).numpy(), want_f,
+                                          err_msg=f)
     assert got.ind_graph.n_ent == 30
     for split in ("valid", "test"):
         gs, ws = got.eval_spec(split), want.eval_spec(split)

@@ -61,7 +61,8 @@ Phases (any failure raises, and the script exits non-zero):
          the (E, b) live counts by the tail-sorted table's ids). At every
          dense call's real inputs, serving and training, the kernel
          against its plain version, forward and backward, with device
-         times, byte bound and index_add_; one served batch and one train
+         times, byte bound and index_add_ (each with L2 warm and
+         flushed); one served batch and one train
          step against the CPU; launches per batch counted; two runs of 4
          steps bit-equal; ms per batch and step, idle share, peak memory.
      6c. the family-sized KG of phase 4 at registry defaults (sort, then
@@ -93,18 +94,25 @@ Phases (any failure raises, and the script exits non-zero):
      the family and umls cells): the hop's index kernels. slot_owner (the
      owner of each expansion slot) at every hop of a served batch and a
      train step of 7a and 7c and of a family served batch: bit-equal to
-     its plain twin (searchsorted) and to the JAX package's
-     scatter-and-cummax route, timed beside its byte bound, the twin, the
-     cummax route and torch.searchsorted; counted over the served batches
-     (1 a 7a batch, 3 a 7c or family batch) and the train steps. list_sum
-     (the dense hop's packed-row gather backward) at 7a's three dense
-     train calls (W = 672) and umls's (6b, W = 980): against float64,
-     bit-equal to list_sum_model and twice, timed with L2 warm and flushed
-     beside its byte bound, the plain twin (the sorted index_put_ autograd
-     took) and index_add_; counted over the trainers' steps (3 a 7a step).
-     ``--phase 7h [--tree DIR]`` times 7a's step and 7c's served batch
-     (with their profiles) through DIR's own functions, then runs the
-     kernel checks where DIR has them.
+     its plain twin (searchsorted), to the JAX package's
+     scatter-and-cummax route and to its partition's model
+     (slot_owner_runs), timed beside its byte bound, the twin, the cummax
+     route and torch.searchsorted (the ratio printed); counted over the
+     served batches (1 a 7a batch, 3 a 7c or family batch) and the train
+     steps. list_sum (the dense hop's packed-row gather backward) at 7a's
+     three dense train calls (W = 672) and umls's (6b, W = 980): against
+     float64, bit-equal to list_sum_model and twice, timed with L2 warm
+     and flushed beside its byte bound, the plain twin (the sorted
+     index_put_ autograd took) and index_add_ (the ratio printed; at 7a
+     the kernel must not be slower); counted over the trainers' steps (3
+     a 7a step). Each kernel split into its passes by torch.profiler at
+     the widest owner fill and the first list sum of each cell, and
+     list_sum there at other warp shares. ``--phase 7h [--tree DIR]``
+     times 7a's step and 7c's served batch (with their profiles) through
+     DIR's own functions, then runs the kernel checks where DIR has them;
+     then the umls entry (served batches, train steps, list_sum at its
+     dense calls) and the family entry (served batches, slot_owner at its
+     hops); DIR's kernels split into passes by this script.
   8. the xERTE and SimplE baselines on 7c's dir: 8a xERTE at full width
      (emb 256-128-64-32, 3 DP steps, K 15, 40 attended edges, batch 128,
      cap factor 4) with XErteTrainer's seeded init: 8 timed forward
@@ -706,6 +714,7 @@ def phase_slice(kg, model, pred, queries, card):
     assert len(owners) == model.cfg.n_layer, len(owners)
     rows = [slot_owner_call_check(*c, "[slice] 7h serve", card)
             for c in owners]
+    hop_pass_profiles(owners, [], "[slice] 7h serve", card)
     return launches, rows
 
 
@@ -1228,9 +1237,12 @@ def dense_kernel_check(calls, n_ent, tag: str, card, sum_bound=False):
         t_k = device_ms(lambda: segment_sum_sorted(data, ids, n))
         t_f = flushed_ms(lambda: segment_sum_sorted(data, ids, n))
         t_p = device_ms(lambda: segment_sum_sorted_reference(data, ids, n))
-        t_l = device_ms(lambda: torch.zeros(n + (n_valid < e), d,
-                                            device="cuda").index_add_(
-            0, idx, data))
+        def library():
+            return torch.zeros(n + (n_valid < e), d,
+                               device="cuda").index_add_(0, idx, data)
+
+        # index_add_ under both L2 states too: compare like with like
+        t_l, t_lf = device_ms(library), flushed_ms(library)
         # every row of an id in range read once (the rows of dead dense
         # edges are zeros, but rows all the same), ids read once, output
         # written once
@@ -1243,10 +1255,11 @@ def dense_kernel_check(calls, n_ent, tag: str, card, sum_bound=False):
             f"{t_k:.4f} ms back to back, {t_f:.4f} ms with L2 flushed; "
             f"byte bound {b_ms * 1e3:.2f} us = {b_ms / t_k:.1%} of the "
             f"kernel's time; plain {t_p:.4f} ms, index_add_ {t_l:.4f} ms "
-            f"(device, CUDA graph) ({card})")
+            f"back to back, {t_lf:.4f} ms with L2 flushed (device, CUDA "
+            f"graph) ({card})")
         rows.append({"E": e, "D": d, "N": n, "max_abs_err": err, "ms": t_k,
                      "ms_l2_flushed": t_f, "bound_ms": b_ms, "plain_ms": t_p,
-                     "library_ms": t_l})
+                     "library_ms": t_l, "library_ms_l2_flushed": t_lf})
     return rows
 
 
@@ -1310,6 +1323,7 @@ def phase_dense_kernel(data_dir: str, card):
     assert len(lists) == t_dense, (len(lists), t_dense)
     list_rows = [list_sum_call_check(*c, "[6b] 7h training", card)
                  for c in lists]
+    hop_pass_profiles([], lists, "[6b] 7h training", card)
     del lists
     log(f"[6b] hops: serving (batch {pred.batch}) {kinds}, caps edge "
         f"{pred.caps.edge_caps}; training (batch {cfg.n_batch}) {tkinds}, "
@@ -2167,13 +2181,41 @@ HOP_INDEX_KERNELS = {
 HOP_ALONE_STEPS = 8  # train steps an epoch in --phase 7h
 
 
-def list_sum_call_check(g, order, off, what: str, card):
+def pass_profile(fn, what: str, card):
+    """The device time of each pass (kernel or memset) of one call of
+    ``fn``, from torch.profiler over 10 calls after a warm one: how a
+    call splits into its launches."""
+    log(f"{what}: passes of one call (torch.profiler, 10 calls):")
+    profile_calls(lambda: [fn() for _ in range(10)], 10, "call", card)
+
+
+def list_share_sweep(call, plan_share: int) -> dict:
+    """ms L2 warm of ``call`` with the list-sum kernel's warps taking 2 to
+    64 positions each and the plan's ``plan_share`` (the plan's rule,
+    `list_share`, replaced for the call; every share gives float32 sums in
+    its own fixed order)."""
+    from redgnn_tpu_torch.ops import gather
+
+    orig = gather.list_share
+    times = {}
+    try:
+        for share in sorted({2, 4, 8, 16, 32, 48, 64, plan_share}):
+            gather.list_share = lambda e, share=share: share
+            times[share] = round(device_ms(call), 4)
+    finally:
+        gather.list_share = orig
+    return times
+
+
+def list_sum_call_check(g, order, off, what: str, card, faster=False):
     """The list-sum kernel at one recorded call (a dense hop's packed-row
     gather backward): against the float64 sum (rtol 1e-5 + 2(m-1)u
     sum|x|), bit-equal to the plain model of its order (`list_sum_model`)
     and on a second call, times with L2 warm and flushed, the byte bound,
     the plain twin (the ``index_put_(accumulate=True)`` over the gather's
-    index that autograd took before) and ``index_add_``."""
+    index that autograd took before) and ``index_add_``, with the
+    kernel's ratio to it. ``faster``: the kernel must not be slower than
+    ``index_add_`` here."""
     from redgnn_tpu_torch.ops import gather
 
     e, w = g.shape
@@ -2210,7 +2252,9 @@ def list_sum_call_check(g, order, off, what: str, card):
         f"L2 warm, {t_f:.4f} ms flushed; byte bound {b_ms * 1e3:.2f} us = "
         f"{b_ms / t_k:.1%} of the warm time, {b_ms / t_f:.1%} of the "
         f"flushed; plain (index_put_, sorted) {t_p:.4f} ms, index_add_ "
-        f"{t_l:.4f} ms ({card})")
+        f"{t_l:.4f} ms: kernel / index_add_ = {t_k / t_l:.3f} ({card})")
+    if faster:
+        assert t_k <= t_l, f"list_sum {t_k:.4f} ms, index_add_ {t_l:.4f} ms"
     return {"E": e, "N": n, "W": w, "largest": int(m.max()),
             "max_abs_err": err, "ms": t_k, "ms_l2_flushed": t_f,
             "bound_ms": b_ms, "plain_ms": t_p, "library_ms": t_l}
@@ -2218,10 +2262,12 @@ def list_sum_call_check(g, order, off, what: str, card):
 
 def slot_owner_call_check(cum, edge_cap: int, what: str, card):
     """The slot-owner kernel at one recorded call (a hop's expansion):
-    bit-equal to its plain twin (`slot_owner_plain`, searchsorted) and to
-    the JAX package's scatter-and-cummax route, times beside the byte
-    bound, the plain twin, the cummax route and one torch.searchsorted
-    over the clamped slots."""
+    bit-equal to its plain twin (`slot_owner_plain`, searchsorted), to
+    the JAX package's scatter-and-cummax route and to the plain model of
+    its partition (`slot_owner_runs`, where the tree has it), times beside
+    the byte bound, the plain twin, the cummax route and one
+    torch.searchsorted over the clamped slots, with the kernel's ratio to
+    it."""
     from redgnn_tpu_torch.ops import frontier
 
     got = frontier.slot_owner(cum, edge_cap)
@@ -2230,6 +2276,9 @@ def slot_owner_call_check(cum, edge_cap: int, what: str, card):
         "the kernel left its plain twin"
     assert torch.equal(got, frontier.slot_owner_cummax(cum, edge_cap)), \
         "the kernel left the cummax route"
+    if hasattr(frontier, "slot_owner_runs"):
+        assert torch.equal(got, frontier.slot_owner_runs(cum, edge_cap)[0]), \
+            "the kernel left its partition's model"
     p = cum.shape[0]
     total = int(cum[-1])
     xs = torch.minimum(torch.arange(edge_cap, device=cum.device), cum[-1] - 1)
@@ -2245,10 +2294,47 @@ def slot_owner_call_check(cum, edge_cap: int, what: str, card):
         f"cummax route; kernel {t_k:.4f} ms L2 warm, {t_f:.4f} ms flushed; "
         f"byte bound {b_ms * 1e3:.2f} us = {b_ms / t_k:.1%} of the warm "
         f"time; plain twin (searchsorted) {t_p:.4f} ms, the cummax route "
-        f"{t_c:.4f} ms, torch.searchsorted alone {t_l:.4f} ms ({card})")
+        f"{t_c:.4f} ms, torch.searchsorted alone {t_l:.4f} ms: kernel / "
+        f"searchsorted = {t_k / t_l:.3f} ({card})")
     return {"P": p, "edge_cap": edge_cap, "max_abs_err": 0.0, "ms": t_k,
             "ms_l2_flushed": t_f, "bound_ms": b_ms, "plain_ms": t_p,
             "cummax_ms": t_c, "library_ms": t_l}
+
+
+def hop_pass_profiles(owners, lists, tag: str, card):
+    """Each pass's device time (`pass_profile`) at the widest of the
+    recorded owner fills ``owners`` and the first of the recorded
+    listed-gather backwards ``lists``, through whichever package is
+    loaded (this tree's, or the parent's under ``--tree``), and the
+    list-sum kernel there at other warp shares where the package picks
+    them (`list_share`): each bit-equal to the model of its order."""
+    from redgnn_tpu_torch.ops import frontier, gather
+
+    if owners:
+        cum, cap = max(owners, key=lambda c: c[1])
+        pass_profile(lambda: frontier.slot_owner(cum, cap),
+                     f"{tag} slot_owner edge_cap={cap}", card)
+    if not lists:
+        return
+    g, order, off = lists[0]
+    pass_profile(lambda: gather.list_sum(g, order, off),
+                 f"{tag} list_sum E={g.shape[0]} W={g.shape[1]}", card)
+    if not hasattr(gather, "list_share"):
+        return
+    orig = gather.list_share
+    try:
+        for share in (1, 64):  # the sweep's ends keep their model's bits
+            gather.list_share = lambda e, share=share: share
+            assert torch.equal(gather.list_sum(g, order, off),
+                               gather.list_sum_model(g, order, off)), share
+    finally:
+        gather.list_share = orig
+    share = gather._list_plan(g.shape[0], off.shape[0] - 1,
+                              g.shape[1]).share
+    log(f"{tag} list_sum E={g.shape[0]} W={g.shape[1]} at other warp "
+        f"shares (positions a warp; the plan's {share}), ms L2 warm: "
+        f"{list_share_sweep(lambda: gather.list_sum(g, order, off), share)} "
+        f"({card})")
 
 
 def hop_index_calls(run):
@@ -2278,10 +2364,16 @@ def hop_index_check(trainer, pred, queries, main: dict, steps: int, tag: str,
         what = f"{tag} {part}"
         out["slot_owner"][part] = [slot_owner_call_check(*c, what, card)
                                    for c in owners]
-        out["list_sum"][part] = [list_sum_call_check(*c, what, card)
-                                 for c in lists]
+        # 7a's train calls: the kernel must not be slower than index_add_
+        out["list_sum"][part] = [
+            list_sum_call_check(*c, what, card, faster=tag == "[7a]")
+            for c in lists]
         for name, calls in (("slot_owner", owners), ("list_sum", lists)):
             out[name][f"launches_per_{part}"] = len(calls)
+        if part == "serve":
+            hop_pass_profiles(owners, [], what, card)
+        else:
+            hop_pass_profiles([], lists, what, card)
         del owners, lists
     assert out["list_sum"]["launches_per_serve"] == 0  # no backward
     for name in out:
@@ -2302,10 +2394,12 @@ def phase_hop_alone(mod, card):
     Predictors as phase 7 builds them; ``N_BATCHES`` timed served batches
     and their profile, two epochs of ``HOP_ALONE_STEPS`` train steps and a
     2-step profile, through ``mod``'s own functions, then (where ``mod``
-    has phase 7h) its kernel checks at the same calls. ``mod`` is this
-    script or, with ``--tree DIR``, DIR's chip_smoke.py running DIR's
-    package: the parent tree's steps and batches on the same card. Returns
-    ms per served batch and per step of both cells."""
+    has phase 7h) its kernel checks at the same calls; then the static
+    cells (`hop_static_alone`). ``mod`` is this script or, with ``--tree
+    DIR``, DIR's chip_smoke.py running DIR's package: the parent tree's
+    steps and batches on the same card; this script's `hop_pass_profiles`
+    splits DIR's kernels into their passes too. Returns ms per served
+    batch and per step of every cell and the kernels' ms at its calls."""
     from redgnn_tpu_torch.cli.train import load_temporal_kg
     from redgnn_tpu_torch.ops import frontier, gather
     from redgnn_tpu_torch.serve import Predictor
@@ -2348,10 +2442,85 @@ def phase_hop_alone(mod, card):
             res = (mod.hop_index_check(trainer, pred, queries, main,
                                        2 * HOP_ALONE_STEPS, tag, card)
                    if hasattr(mod, "hop_index_check") else {})
+            if mod is not sys.modules[__name__]:
+                q0 = queries[:pred.batch]
+                owners, _ = hop_index_calls(lambda: pred.predict(
+                    q0[:, 0], q0[:, 1], q0[:, 3]))
+                _, lists = hop_index_calls(temporal_step_fn(trainer))
+                trainer.model.zero_grad(set_to_none=True)
+                hop_pass_profiles(owners, [], f"{tag} serve", card)
+                hop_pass_profiles([], lists, f"{tag} train", card)
+                del owners, lists
         out[entry] = {"serve_ms": float(np.mean(times)), "step_ms": step_ms,
                       "kernels": {name: {part: [r["ms"] for r in res[name][
                           part]] for part in ("serve", "train")}
                           for name in res}}
+    out.update(hop_static_alone(mod, card))
+    return out
+
+
+def hop_static_alone(mod, card):
+    """Phase 7h alone, the static cells, through ``mod``'s own functions:
+    the umls entry at its registry defaults (``N_BATCHES`` served batches,
+    two epochs of UMLS_TRAIN_STEPS train steps, the list-sum kernel at one
+    train step's dense calls) and the family entry through the segment
+    kernel (``N_BATCHES`` served batches, the slot-owner kernel at one
+    served batch's hops), each kernel split into its passes. Returns ms
+    per served batch (and per step) and the kernels' ms at those calls."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mod.write_umls_sized_kg(tmp)
+        kg, cfg, _, pred = mod.build_slice(tmp, "cuda", "umls",
+                                           scan_chunk=UMLS_TRAIN_STEPS)
+        queries = mod.serving_queries(kg, N_BATCHES * pred.batch)
+        mod.timed_batches(pred, queries, 1)  # warm-up
+        times, _ = mod.timed_batches(pred, queries, N_BATCHES)
+        log(f"[umls] served {N_BATCHES} batches of {pred.batch} at registry "
+            f"defaults: per-batch ms {[round(t, 3) for t in times]}; mean "
+            f"{np.mean(times):.3f} ms ({card})")
+        trainer = mod.make_trainer(tmp, "cuda", cfg, steps=UMLS_TRAIN_STEPS)
+        step_ms, _ = mod.train_steps_check(trainer, UMLS_TRAIN_STEPS,
+                                           "[umls]", card)
+        caps = mod.exact_train_caps(trainer)
+
+        def one_step():
+            from redgnn_tpu_torch.train.loop import softmax_ce_loss
+
+            subs, rels, objs, qmask = mod.step_tensors(trainer, 0)
+            scores, _ = trainer.model(trainer.kg.graph, subs, rels, qmask,
+                                      caps)
+            softmax_ce_loss(scores, objs, qmask).backward()
+
+        _, lists = hop_index_calls(one_step)
+        trainer.model.zero_grad(set_to_none=True)
+        assert lists, "the umls train step made no dense hop"
+        rows = [mod.list_sum_call_check(*c, "[umls] 7h training", card)
+                for c in lists]
+        hop_pass_profiles([], lists, "[umls] 7h training", card)
+        del lists
+        out["umls"] = {"serve_ms": float(np.mean(times)),
+                       "step_ms": step_ms,
+                       "kernels": {"list_sum": {"train": [r["ms"]
+                                                          for r in rows]}}}
+    with tempfile.TemporaryDirectory() as tmp:
+        mod.write_synthetic_kg(tmp)
+        kg, _, _, pred = mod.build_slice(tmp, "cuda", **mod.KERNEL_SLICE)
+        queries = mod.serving_queries(kg, N_BATCHES * pred.batch)
+        mod.timed_batches(pred, queries, 1)  # warm-up
+        times, _ = mod.timed_batches(pred, queries, N_BATCHES)
+        log(f"[family] served {N_BATCHES} batches of {pred.batch} through "
+            f"the segment kernel: per-batch ms "
+            f"{[round(t, 3) for t in times]}; mean {np.mean(times):.3f} ms "
+            f"({card})")
+        q0 = queries[:pred.batch]
+        owners, _ = hop_index_calls(lambda: pred.predict(q0[:, 0],
+                                                         q0[:, 1]))
+        rows = [mod.slot_owner_call_check(*c, "[family] 7h serve", card)
+                for c in owners]
+        hop_pass_profiles(owners, [], "[family] 7h serve", card)
+        out["family"] = {"serve_ms": float(np.mean(times)),
+                         "kernels": {"slot_owner": {"serve": [
+                             r["ms"] for r in rows]}}}
     return out
 
 

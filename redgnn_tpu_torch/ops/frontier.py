@@ -17,10 +17,11 @@ arithmetic is int64 inside (JAX: int32; the values agree).
 
 The owner of each output edge slot (`slot_owner`) is a search of the
 slot in the degree cumsum: on a CUDA device the hand-written kernel
-``csrc/slot_owner.cu``, on the CPU ``torch.searchsorted``. The JAX
-package scatters a marker at each node's first slot and fills the rest
-with ``cummax`` (a search lowers slowly on a TPU); the integers are the
-same.
+``csrc/slot_owner.cu`` (a search once a run of slots, then a walk along
+the cumsum; `slot_owner_runs` is its partition in plain PyTorch), on the
+CPU ``torch.searchsorted``. The JAX package scatters a marker at each
+node's first slot and fills the rest with ``cummax`` (a search lowers
+slowly on a TPU); the integers are the same.
 """
 
 from __future__ import annotations
@@ -35,6 +36,12 @@ from redgnn_tpu_torch.ops.gather import gather_rows_packed
 
 # Padding key. Max int32 so that padded entries sort to the end.
 SENTINEL = 2 ** 31 - 1
+# csrc/slot_owner.cu: consecutive slots a thread owns (kRun), slots a
+# block (kSlots) and the steps a walk takes before it searches again
+# (kWalk)
+OWNER_RUN = 4
+OWNER_BLOCK = 1024
+OWNER_WALK = 8
 
 
 class Frontier(NamedTuple):
@@ -104,6 +111,59 @@ def slot_owner_cummax(cum: torch.Tensor, edge_cap: int) -> torch.Tensor:
     return torch.cummax(marker, 0).values
 
 
+def _owner_blocks(edge_cap: int) -> int:
+    """Blocks of the slot-owner kernel for ``edge_cap`` slots, OWNER_BLOCK
+    a block: a function of ``edge_cap`` alone."""
+    return -(-edge_cap // OWNER_BLOCK)
+
+
+def slot_owner_runs(cum: torch.Tensor, edge_cap: int):
+    """`slot_owner` by the kernel's partition, in plain PyTorch (tests):
+    blocks of OWNER_BLOCK slots, each bracketed by the owners of its first
+    and last slots; runs of OWNER_RUN slots, each finding its first owner
+    by a search inside its block's bracket, then walking the cumsum slot
+    by slot, at most OWNER_WALK steps before it searches again from where
+    it stands. Returns (owners, searches after a walk ran out): the
+    owners equal `slot_owner_plain`'s."""
+    out = torch.zeros(edge_cap, dtype=torch.int64, device=cum.device)
+    total = int(cum[-1])
+    if edge_cap == 0 or total <= 0:
+        return out, 0
+    run, block = OWNER_RUN, OWNER_BLOCK
+    x = torch.clamp(torch.arange(edge_cap, device=cum.device), max=total - 1)
+    first = torch.arange(0, edge_cap, block, device=cum.device)
+    lo = torch.searchsorted(cum, x[first], right=True)
+    hi = torch.searchsorted(
+        cum, x[torch.clamp(first + block, max=edge_cap) - 1], right=True)
+    starts = torch.arange(0, edge_cap, run, device=cum.device)
+    blk = starts // block
+    b_lo, b_hi = lo[blk], hi[blk]
+
+    def search(lo_, hi_, x_):  # the first i in [lo_, hi_] with cum[i] > x_
+        i = torch.searchsorted(cum, x_, right=True)
+        assert bool(((i >= lo_) & (i <= hi_)).all())
+        return i
+
+    i = search(b_lo, b_hi, x[starts])
+    out[starts] = i
+    searches = 0
+    for j in range(1, run):
+        e = starts + j
+        live = e < edge_cap
+        xe = x[torch.clamp(e, max=edge_cap - 1)]
+        for _ in range(OWNER_WALK):
+            move = live & (cum[i] <= xe)
+            if not bool(move.any()):
+                break
+            i = i + move.long()
+        stuck = live & (cum[i] <= xe)
+        if bool(stuck.any()):
+            i = torch.where(stuck, search(i, b_hi, xe), i)
+            searches += int(stuck.sum())
+        out[e[live]] = i[live]
+    return out, searches
+
+
 def slot_owner(cum: torch.Tensor, edge_cap: int) -> torch.Tensor:
     """Owner of each of ``edge_cap`` output edge slots: slot ``e`` belongs
     to the first node ``i`` with ``cum[i] > min(e, total - 1)``, ``total =
@@ -126,9 +186,9 @@ def slot_owner(cum: torch.Tensor, edge_cap: int) -> torch.Tensor:
         return out
     fn = _build.entry("slot_owner", "slot_owner_i64",
                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_void_p])
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
     _build.launch(fn, (cum.data_ptr(), out.data_ptr(), cum.shape[0],
-                       edge_cap), cum,
+                       edge_cap, _owner_blocks(edge_cap)), cum,
                   f"slot_owner ({cum.shape[0]} nodes, {edge_cap} slots)")
     slot_owner.launches += 1
     return out

@@ -19,9 +19,10 @@ bits, so the backward refuses to run on a CUDA device while
 ``packed[tsrc]``: a plain gather forward, and a backward that sums each
 table row's edges through a list given with the graph (the stable order
 of ``tsrc`` and the CSR's own row offsets), `list_sum`: on a CUDA device
-the hand-written kernel ``csrc/list_sum.cu`` (the share pass of the two
-kernels above, no atomics, one order fixed by shapes), on the CPU the
-``index_put_(accumulate=True)`` that autograd of the plain gather takes.
+the hand-written kernel ``csrc/list_sum.cu`` (one launch: whole rows
+through a ring of copies a warp, the share pass's order, no float
+atomics), on the CPU the ``index_put_(accumulate=True)`` that autograd
+of the plain gather takes.
 
 ``take_rows_sorted`` and ``gather_rows_packed`` serve bitmap-dedup hops,
 whose index vector is non-decreasing. ``gather_rows_packed``'s backward
@@ -79,6 +80,16 @@ SCATTER_CHUNK = 4096
 SCATTER_MAX_ROWS = 4096
 # csrc/range_sum.cu: rows a block of the scan passes takes (kScanRows)
 RANGE_SCAN_ROWS = 512
+# csrc/list_sum.cu: the columns a block sums (kMaxTile), the floats of a
+# warp's ring of copies and head row (kRingFloats, or three rows of a wider
+# tile), the positions a warp sums at least and at most (kMaxSub), and the
+# blocks of one wave: three blocks on each of the H100's 132 streaming
+# multiprocessors
+LIST_MAX_TILE = 1024
+LIST_RING_FLOATS = 2048
+LIST_MIN_SHARE = 8
+LIST_MAX_SHARE = 64
+LIST_WAVE_BLOCKS = 396
 
 
 class ScatterPlan(NamedTuple):
@@ -97,9 +108,12 @@ class RangePlan(NamedTuple):
 
 
 class ListPlan(NamedTuple):
-    tile: int    # columns a block of the share pass sums
-    share: int   # list positions a warp of the share pass sums
-    blocks: int  # blocks of the share and fix-up passes
+    tile: int        # columns a block sums (the whole row up to 1,024)
+    share: int       # list positions a warp sums
+    blocks: int      # blocks over the list
+    tiles: int       # column tiles (the grid's second dimension)
+    stage_rows: int  # rows a stage of a warp's ring holds
+    stages: int      # stages of a warp's ring
 
 
 def share_slots(n: int) -> int:
@@ -143,15 +157,57 @@ def _range_plan(n: int, p: int, dim: int) -> RangePlan:
                      -(-p // RANGE_SCAN_ROWS), _blocks(n, share))
 
 
+def list_share(e: int) -> int:
+    """Positions a warp of the list-sum kernel sums, for a list of ``e``:
+    the fewest that cut the list into whole waves of LIST_WAVE_BLOCKS
+    blocks of at most LIST_MAX_SHARE positions a warp (49 at 7a's 152,780
+    positions: 390 blocks, one wave), so that the card's multiprocessors
+    get equal work; but at least LIST_MIN_SHARE, over which a warp's
+    fixed costs (its rows' search, its partials) are paid back (umls's
+    7,959 positions: 125 blocks of 8 a warp). A function of ``e`` alone;
+    it fixes the summation order."""
+    per_wave = SHARE_WARPS * LIST_WAVE_BLOCKS
+    waves = max(-(-e // (per_wave * LIST_MAX_SHARE)), 1)
+    return max(-(-e // (per_wave * waves)), LIST_MIN_SHARE)
+
+
 def _list_plan(e: int, n: int, w: int) -> ListPlan | None:
     """The list-sum kernel's launch plan for a list of ``e`` positions
     into ``n`` rows of width ``w``, or None where the kernel's int32
     positions and rows do not reach (``e`` or ``n`` at 2^31 or more): a
-    function of (e, n, w) alone."""
+    function of (e, n, w) alone. A block sums whole rows of up to
+    LIST_MAX_TILE columns (wider rows take tiles of that many); a warp's
+    LIST_RING_FLOATS floats (three rows of a wider tile) hold its head
+    row and a ring of ``stages`` stages of ``stage_rows`` rows of the tile
+    (2 x 1 at W = 672 and 980, 3 x 32 at W = 20), the tail row once
+    drained."""
     if e >= 2 ** 31 or n >= 2 ** 31:
         return None
-    share = share_slots(e)
-    return ListPlan(min(max(w, 1), SHARE_MAX_COLS), share, _blocks(e, share))
+    tile = min(max(w, 1), LIST_MAX_TILE)
+    row = (tile + 3) // 4 * 4
+    rows = max(LIST_RING_FLOATS, 3 * row) // row - 1
+    stage_rows = min(max(rows // 3, 1), 32)
+    share = list_share(e)
+    return ListPlan(tile, share, _blocks(e, share), -(-max(w, 1) // tile),
+                    stage_rows, min(rows // stage_rows, 8))
+
+
+# the list-sum kernel's row counters, one buffer a (device, stream): the
+# kernel leaves them 0, and none is ever freed (a captured CUDA graph may
+# hold its address)
+_LIST_COUNTS: dict = {}
+
+
+def _list_counts(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` or more int32 zeros on ``device`` for the list-sum kernel's
+    row counters, kept for the current stream: a launch finds them 0 and
+    leaves them 0, so they are zeroed once, when a buffer is made."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    bufs = _LIST_COUNTS.setdefault(key, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 2 * bufs[-1].numel() if bufs else 0,
+                                    1024), dtype=torch.int32, device=device))
+    return bufs[-1]
 
 
 def _copy_bytes(g: torch.Tensor, tile: int) -> int:
@@ -586,15 +642,15 @@ def list_sum(g: torch.Tensor, order: torch.Tensor,
     if n == 0 or w == 0 or e == 0:
         return g.new_zeros((n, w))
     out = g.new_empty((n, w))
-    tails = torch.empty(plan.blocks, dtype=torch.int32, device=g.device)
     bpart = g.new_empty((plan.blocks, 2, w))
+    counts = _list_counts(g.device, plan.blocks * plan.tiles)
     fn = _build.entry("list_sum", "list_sum_f32",
                       [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                      + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     _build.launch(fn, (g.data_ptr(), order.data_ptr(), off.data_ptr(),
-                       out.data_ptr(), tails.data_ptr(), bpart.data_ptr(), e,
-                       w, n, plan.tile, plan.share,
-                       _copy_bytes(g, plan.tile)), g,
+                       out.data_ptr(), bpart.data_ptr(), counts.data_ptr(),
+                       e, w, n, plan.tile, plan.share, plan.stage_rows,
+                       plan.stages), g,
                   f"list_sum ({e} positions, {n} rows of {w})")
     list_sum.launches += 1
     return out

@@ -396,20 +396,34 @@ def _owner_cum(rng, kind, p=110_336):
         deg[:] = 0
     elif kind == "hub":
         deg[17] = 200_000
+    elif kind == "hubs":  # 1.7M slots, half of them in hubs past a block
+        deg[rng.choice(p - p // 8, 20, replace=False)] = 40_000
     elif kind == "sparse_owners":  # spans past a block's stage
         deg[:] = 0
         deg[rng.choice(p, 40, replace=False)] = rng.integers(1, 5_000, 40)
+    elif kind == "zero_runs":  # walks run out before and after the pads
+        deg[:5_000] = 0
+        deg[50_000:70_000] = 0
+        deg[-p // 8 - 20_000:] = 0
+    elif kind == "one_node":
+        deg = np.array([5])
     total = int(deg.sum())
-    cap = {"overflow": total // 3, "zero": 4_097}.get(kind, total + 12_345)
+    cap = {"overflow": total // 3, "zero": 4_097,
+           "odd": (total + 12_345) | 1, "one_node": 9}.get(kind,
+                                                           total + 12_346)
     return torch.from_numpy(np.cumsum(deg).astype(np.int64)), cap
 
 
-@pytest.mark.parametrize("kind", ["random", "zero", "hub", "overflow",
-                                  "sparse_owners"])
+@pytest.mark.parametrize("kind", ["random", "zero", "hub", "hubs",
+                                  "overflow", "odd", "sparse_owners",
+                                  "zero_runs", "one_node"])
 def test_slot_owner_kernel_matches_plain(card, kind):
     """The slot-owner kernel at a 7c served hop's size (110,336 nodes, ~1.7M
-    slots) against its plain twin (searchsorted) and the scatter-and-cummax
-    route, bit for bit, one launch a call; and with no host sync."""
+    slots; hubs past a block, total 0, edge_cap below total or odd, long
+    runs of zero degrees before and after the pads, one node) against its
+    plain twin (searchsorted), the scatter-and-cummax route and its
+    partition's model (`slot_owner_runs`), bit for bit, one launch a call;
+    and with no host sync."""
     from redgnn_tpu_torch.ops import frontier
 
     rng = np.random.default_rng(21)
@@ -426,6 +440,7 @@ def test_slot_owner_kernel_matches_plain(card, kind):
     assert got.dtype == torch.int64 and got.shape == (cap,)
     assert torch.equal(got, frontier.slot_owner_plain(cum, cap))
     assert torch.equal(got, frontier.slot_owner_cummax(cum, cap))
+    assert torch.equal(got, frontier.slot_owner_runs(cum, cap)[0])
     assert frontier.slot_owner(cum, 0).shape == (0,)
 
 
@@ -456,7 +471,12 @@ def test_expansion_on_card_fills_owners_by_the_kernel(card):
 
 
 def _list_case(rng, e, n, w, hub):
+    """(order, off): E positions in N rows, a third of the rows empty and
+    the first and last three too (where N allows), one hub of ``hub``
+    positions, a random permutation as the list."""
     live = np.flatnonzero(rng.random(n) < 0.67)
+    if n > 12:
+        live = live[(live >= 3) & (live < n - 3)]
     cnt = np.bincount(rng.choice(live, e - hub), minlength=n)
     cnt[n // 2] += hub
     off = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int32)
@@ -465,23 +485,29 @@ def _list_case(rng, e, n, w, hub):
 
 
 @pytest.mark.parametrize("e,n,w,hub", [(152_780, 7_128, 672, 9_000),
+                                       (7_959, 135, 980, 2_000),
                                        (10_567, 135, 980, 2_000),
                                        (40_000, 3_000, 20, 30_000),
                                        (40_000, 3_000, 33, 0),
+                                       (6_000, 300, 2_450, 1_000),
                                        (3, 2, 672, 0)])
-@pytest.mark.parametrize("misaligned", [False, True])
-def test_list_sum_kernel_matches_model(card, e, n, w, hub, misaligned):
-    """The list-sum kernel at the dense hops' widths (7a: 152,780 edges
-    into 7,128 rows of 672; umls: 980) and odd ones, a hub, a third of the
-    rows empty, 16-byte aligned or not: within the rounding bound of
-    float64, bit-equal to `list_sum_model` and on a second call."""
+@pytest.mark.parametrize("shift", [0, 1, 2])
+def test_list_sum_kernel_matches_model(card, e, n, w, hub, shift):
+    """The list-sum kernel at the dense hops' lists and widths (7a: 152,780
+    edges into 7,128 rows of 672; umls: 7,959 and 10,567 into 135 rows of
+    980), odd and narrow widths (33, 20) and one past a block's tile
+    (2,450: three tiles), a hub longer than a share, a third of the rows
+    empty and empty rows at both ends; g 16-byte aligned (bulk copies) or
+    shifted by one or two floats (4- and 8-byte pieces): within the
+    rounding bound of float64, bit-equal to `list_sum_model` and on a
+    second call, one launch a call, its row counters left at 0."""
     from redgnn_tpu_torch.ops import gather
 
     rng = np.random.default_rng(23)
     order, off = _list_case(rng, e, n, w, hub)
     buf = torch.from_numpy(
-        rng.normal(size=e * w + 1).astype(np.float32)).to(card)
-    g = buf[1:].view(e, w) if misaligned else buf[:-1].view(e, w)
+        rng.normal(size=e * w + 2).astype(np.float32)).to(card)
+    g = buf[shift:shift + e * w].view(e, w)
     order, off = order.to(card), off.to(card)
     before = gather.list_sum.launches
     got = gather.list_sum(g, order, off)
@@ -494,6 +520,35 @@ def test_list_sum_kernel_matches_model(card, e, n, w, hub, misaligned):
     _sum_bound(got, gather.list_sum_reference(g, order, off),
                gather.list_sum_reference(g.abs(), order, off), m)
     assert bool((got[m == 0] == 0).all())
+    for bufs in gather._LIST_COUNTS.values():
+        assert all(int(b.abs().sum()) == 0 for b in bufs)
+
+
+def test_list_sum_kernel_in_a_cuda_graph(card):
+    """The list-sum kernel captured in a CUDA graph and replayed (its row
+    counters persist between launches): each replay gives the eager
+    call's bits."""
+    from redgnn_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(24)
+    order, off = (t.to(card) for t in _list_case(rng, 7_959, 135, 980,
+                                                 2_000))
+    g = torch.from_numpy(rng.normal(size=(7_959, 980)).astype(
+        np.float32)).to(card)
+    want = gather.list_sum(g, order, off)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gather.list_sum(g, order, off)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = gather.list_sum(g, order, off)
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

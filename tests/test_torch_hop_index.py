@@ -14,12 +14,21 @@ What is held:
   route (`slot_owner_cummax`) and to ``src`` of JAX's
   ``expand_frontier_ranges``: random degrees, all zero, a hub, overflow,
   ``extra_edge_slot``.
+- `slot_owner_runs` (the kernel's partition: runs of 4 slots a thread,
+  1,024 slots a block, a search a run and a bounded walk) equal to
+  ``torch.searchsorted`` on those frontiers and on long runs of
+  zero-degree nodes, where the walk runs out and searches again; the
+  kernel's block count a function of edge_cap alone.
 - `graph.kg.build_src_order` with the CSR's ``rowptr`` lists every edge in
   its source's row exactly once, for the static and temporal graphs.
 - `list_sum_model` (the kernel's order) within rtol 1e-5 + 2(m-1)u·sum|x|
   of float64 (u = 2^-24, m terms in a cell: the rounding bound of a
   float32 sum in any order) at the 7a dense hop's width W = 672 with a
-  hub row and empty rows; on multiples of 1/8, float64's bits.
+  hub row and empty rows, and at the umls dense hop's list and width
+  (7,959 positions, W = 980) with empty rows at both ends; on multiples
+  of 1/8, float64's bits. The launch plan (`_list_plan`) is a function
+  of shapes alone, its blocks, warp shares and column tiles cover the
+  list and the row exactly once, and a warp's ring fits its floats.
 - `gather_rows_listed`'s CPU backward against JAX's VJP of
   ``packed[tsrc]`` within rtol 1e-5, float32 and bf16. The bf16 case is
   jitted with ``xla_allow_excess_precision`` off (tests/test_torch_bf16.py
@@ -32,7 +41,7 @@ What is held:
   1e-5·max|grad|, the tolerances of tests/test_torch_model.py and
   tests/test_torch_temporal.py.
 
-Time: about 15 s of one xdist worker (the JAX model's compile and its
+Time: about 20 s of one xdist worker (the JAX model's compile and its
 gradient take most of it).
 """
 
@@ -138,6 +147,49 @@ def test_slot_owner_matches_cummax_and_jax(rng, kind):
                                   np.asarray(want.edge_valid))
 
 
+def _zero_run_cum(rng):
+    """A 20,000-node frontier: Zipf degrees, zero-degree runs of 3,000 at
+    the start and 5,000 in the middle, 4,000 SENTINEL pads at the end."""
+    deg = np.minimum(rng.zipf(1.5, 20_000), 500)
+    deg[:3_000] = 0
+    deg[9_000:14_000] = 0
+    deg[-4_000:] = 0
+    return torch.from_numpy(np.cumsum(deg).astype(np.int64))
+
+
+@pytest.mark.parametrize("kind", ["random", "zero", "hub", "overflow",
+                                  "extra", "zero_run"])
+def test_slot_owner_runs_match_searchsorted(rng, kind):
+    """The kernel's partition in plain PyTorch (`slot_owner_runs`: a
+    search a run of slots inside its block's bracket, then a walk of at
+    most 8 steps before it searches again) gives searchsorted's owners on
+    the expansion frontiers above and on long runs of zero-degree nodes
+    (where walks run out: searched again) at several edge caps, ragged
+    and odd among them; its blocks cover the slots once."""
+    if kind == "zero_run":
+        cum = _zero_run_cum(rng)
+        total = int(cum[-1])
+        caps = [total // 2 + 1, total, total + 4_097]
+    else:
+        _, _, deg, extra, edge_cap, *_ = _ranges_case(rng, kind)
+        deg = deg + (extra is not None)
+        cum = torch.from_numpy(np.cumsum(deg).astype(np.int64))
+        caps = [edge_cap, 2 * edge_cap + 1]
+    searched = 0
+    for cap in caps:
+        got, n_search = tfrontier.slot_owner_runs(cum, cap)
+        assert torch.equal(got, tfrontier.slot_owner_plain(cum, cap)), cap
+        searched += n_search
+        blocks, block = tfrontier._owner_blocks(cap), tfrontier.OWNER_BLOCK
+        assert (blocks - 1) * block < cap <= blocks * block
+    if kind == "zero_run":
+        assert searched > 0
+    assert tfrontier.slot_owner_runs(cum, 0)[0].shape == (0,)
+    one = torch.tensor([7], dtype=torch.int64)  # P = 1
+    assert torch.equal(tfrontier.slot_owner_runs(one, 9)[0],
+                       torch.zeros(9, dtype=torch.int64))
+
+
 def test_slot_owner_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="int64"):
         tfrontier.slot_owner(torch.zeros(3, dtype=torch.int32), 4)
@@ -191,10 +243,12 @@ def test_src_order_temporal(vocab_dir):
 # ------------------------------------------------------------- list sums
 
 def _list_case(rng, e=12_000, n=300, w=672, hub=9_000):
-    """(g, order, off): E positions in N rows, a third of them empty, one
-    hub of ``hub`` positions (past 16 blocks of 512 positions: every level
-    of the share pass's order), a random permutation as the list."""
+    """(g, order, off): E positions in N rows, a third of them empty and
+    the first and last three too, one hub of ``hub`` positions (past 16
+    blocks: every level of the share pass's order), a random permutation
+    as the list."""
     live = np.flatnonzero(rng.random(n) < 0.67)
+    live = live[(live >= 3) & (live < n - 3)]
     cnt = np.bincount(rng.choice(live, e - hub), minlength=n)
     cnt[7] += hub
     off = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int32)
@@ -214,13 +268,13 @@ def _bound(got, want, s_abs, m):
 
 def test_list_model_matches_float64(rng):
     """The kernel's order in plain PyTorch at W = 672 (`list_sum_model`:
-    the listed rows in list order, warp shares of 64, block and group
-    fix-ups) within the rounding bound of float64; empty rows 0; on
-    multiples of 1/8 float64's bits. The CPU path (`list_sum`:
+    the listed rows in list order, warp shares of the plan's 8 positions,
+    block and group fix-ups) within the rounding bound of float64; empty
+    rows 0; on multiples of 1/8 float64's bits. The CPU path (`list_sum`:
     ``index_put_``) within the same bound, the counter still."""
     g, order, off = _list_case(rng)
     plan = tg._list_plan(g.shape[0], off.shape[0] - 1, g.shape[1])
-    assert plan == (128, 64, 24)
+    assert plan == (672, 8, 188, 1, 1, 2)
     m = torch.diff(off.long())
     got = tg.list_sum_model(g, order, off)
     assert got.dtype == torch.float32 and got.shape == (300, 672)
@@ -238,19 +292,64 @@ def test_list_model_matches_float64(rng):
 
 
 def test_list_plan_depends_on_shapes_alone():
-    """The plan reads (E, N, W) and nothing else; the widths of the dense
-    hops take 6 (7a) and 8 (umls) column tiles; the kernel's int32 reach
-    bounds it."""
+    """The plan reads (E, N, W) and nothing else; a block sums the dense
+    hops' whole rows (one column tile at W = 672 and 980) through a ring
+    of 2 rows a warp; 7a's list is one wave of 390 blocks of 49 positions
+    a warp, umls's 125 blocks of 8 (the least share); the kernel's int32
+    reach bounds it."""
     import inspect
 
     assert list(inspect.signature(tg._list_plan).parameters) == \
         ["e", "n", "w"]
+    assert list(inspect.signature(tg.list_share).parameters) == ["e"]
     plan = tg._list_plan(152_780, 7_128, 672)
-    assert plan == (128, 64, 299) and all(type(v) is int for v in plan)
-    assert -(-672 // plan.tile) == 6
-    assert -(-980 // tg._list_plan(10_567, 135, 980).tile) == 8
+    assert plan == (672, 49, 390, 1, 1, 2)
+    assert all(type(v) is int for v in plan)
+    assert tg._list_plan(7_959, 135, 980) == (980, 8, 125, 1, 1, 2)
     assert tg._list_plan(2 ** 31, 5, 8) is None
     assert tg._list_plan(5, 2 ** 31, 8) is None
+
+
+@pytest.mark.parametrize("e", [1, 3, 500, 7_959, 12_000, 152_780,
+                               1_048_576, 2 ** 31 - 1])
+@pytest.mark.parametrize("w", [1, 20, 33, 672, 980, 1_024, 2_450])
+def test_list_plan_covers_the_list_once(e, w):
+    """Blocks of SHARE_WARPS warps of ``share`` positions cover the E
+    positions once (the last block ragged), tiles of ``tile`` columns
+    cover the row once; the share is the fewest positions (at most
+    LIST_MAX_SHARE) that cut the list into whole waves of
+    LIST_WAVE_BLOCKS blocks, or LIST_MIN_SHARE; a warp's floats hold its
+    head row and a ring of two stages or more."""
+    plan = tg._list_plan(e, 9, w)
+    block = tg.SHARE_WARPS * plan.share
+    assert (plan.blocks - 1) * block < e <= plan.blocks * block
+    assert (plan.tiles - 1) * plan.tile < w <= plan.tiles * plan.tile
+    assert plan.tile <= tg.LIST_MAX_TILE
+    assert plan.tiles == 1 or plan.tile % 4 == 0
+    share, wave = plan.share, tg.LIST_WAVE_BLOCKS
+    assert tg.LIST_MIN_SHARE <= share <= tg.LIST_MAX_SHARE
+    waves = -(-plan.blocks // wave)
+    assert waves == max(-(-e // (wave * tg.SHARE_WARPS * 64)), 1)
+    assert share == tg.LIST_MIN_SHARE or \
+        tg._blocks(e, share - 1) > waves * wave
+    row = -(-plan.tile // 4) * 4
+    assert 1 <= plan.stage_rows <= 32 and 2 <= plan.stages <= 8
+    assert (plan.stages * plan.stage_rows + 1) * row <= \
+        max(tg.LIST_RING_FLOATS, 3 * row)
+
+
+def test_list_model_at_the_umls_plan(rng):
+    """`list_sum_model` at the umls dense hop's list (7,959 positions into
+    135 rows of W = 980, 2,000 of them in one hub, empty rows at both
+    ends): the plan's 125 blocks of 8 positions a warp, 8 groups, within
+    the rounding bound of float64; empty rows 0."""
+    g, order, off = _list_case(rng, e=7_959, n=135, w=980, hub=2_000)
+    m = torch.diff(off.long())
+    assert int((m[:3] == 0).sum()) == 3 and int((m[-3:] == 0).sum()) == 3
+    got = tg.list_sum_model(g, order, off)
+    _bound(got, tg.list_sum_reference(g, order, off),
+           tg.list_sum_reference(g.abs(), order, off), m)
+    assert bool((got[m == 0] == 0).all())
 
 
 def test_list_sum_refuses_what_it_does_not_take():

@@ -3,16 +3,16 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (time_kernel_variants.py times other builds of the kernel at the same
-hop shapes.) ``python3 chip_smoke.py --phase 7g|7h [--tree DIR]`` runs
-phase 7g or 7h alone, with this tree's or DIR's script and package.
+hop shapes.) ``python3 chip_smoke.py --phase 7g|7h|7i [--tree DIR]`` runs
+phase 7g, 7h or 7i alone, with this tree's or DIR's script and package.
 
 Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit; TF32 off.
-  2. build: compile the five CUDA kernels from csrc/ with nvcc (the
+  2. build: compile the seven CUDA kernels from csrc/ with nvcc (the
      sorted-segment sum, the range sum, the small-table scatter-add, the
-     list sum and the slot owner), and the native graph walker
-     (native/graphcore.cpp) with the host's C++ compiler, all six at once;
-     their seconds are printed.
+     list sum, the slot owner and the two dense hop kernels), and the
+     native graph walker (native/graphcore.cpp) with the host's C++
+     compiler, all eight at once; their seconds are printed.
   3. kernel vs plain: the kernel against its plain PyTorch version on the
      card, at the shapes of the slice's own hops (batch 50, L=3, D=48)
      plus skewed / empty / out-of-range / kmax-overflow / scalar-path
@@ -57,8 +57,10 @@ Phases (any failure raises, and the script exits non-zero):
          this configuration is held to tolerances and never to equal
          bits.
      6b. segment_impl='pallas': sort-dedup sparse hops, then dense hops
-         through the kernel (2 launches a hop: the (E, b*d) messages and
-         the (E, b) live counts by the tail-sorted table's ids). At every
+         through the kernel where gradients flow (2 launches a hop: the
+         (E, b*d) messages and the (E, b) live counts by the tail-sorted
+         table's ids; a served batch's dense hops take the dense hop
+         kernel, phase 7i). At every
          dense call's real inputs, serving and training, the kernel
          against its plain version, forward and backward, with device
          times, byte bound and index_add_ (each with L2 warm and
@@ -112,7 +114,21 @@ Phases (any failure raises, and the script exits non-zero):
      DIR's own functions, then runs the kernel checks where DIR has them;
      then the umls entry (served batches, train steps, list_sum at its
      dense calls) and the family entry (served batches, slot_owner at its
-     hops); DIR's kernels split into passes by this script.
+     hops); DIR's kernels split into passes by this script. 7i (in 6a,
+     7a and 10b): the dense hop's forward kernels (dense_hop_static,
+     dense_hop_temporal) at every dense call of one served batch: against
+     the plain version (visited sets and counts equal) and a float64
+     referee on the same inputs ((1e-5 + 2(m-1)u) sum|x| plus twice the
+     plain version's own error), bit-equal twice, timed with L2 warm and
+     flushed beside the bound (bytes or float32 work of the kept pairs),
+     the plain version, the whole fused hop and the old (autograd) route;
+     their launches counted: one a dense hop of every served batch (6a,
+     6b, 7a, 7b, 10b in bf16 and float32) and of 7a's evaluation. 6b and
+     7b record their segment-kernel rows at the served dense calls
+     through the autograd route (a served batch no longer sums there).
+     ``--phase 7i [--tree DIR]`` times 7a's and umls's served batches and
+     evaluations with their peak memory through DIR's own functions, and
+     runs the kernel checks where DIR has them.
   8. the xERTE and SimplE baselines on 7c's dir: 8a xERTE at full width
      (emb 256-128-64-32, 3 DP steps, K 15, 40 attended edges, batch 128,
      cap factor 4) with XErteTrainer's seeded init: 8 timed forward
@@ -1087,17 +1103,20 @@ def eval_check(trainer, tag: str, card):
     spec = trainer.kg.eval_spec("valid")
     n_answers = sum(len(a) for a in spec.answers)
     trainer.evaluate("valid")  # calibrates the split's caps, warms up
+    reset_dense_hop_launches()
     t0 = time.perf_counter()
     m = trainer.evaluate("valid")
     seconds = time.perf_counter() - t0
+    launches = dense_hop_launches()
     assert m["n"] == n_answers, (m["n"], n_answers)
     assert all(0.0 <= m[k] <= 1.0 for k in ("mrr", "h1", "h3", "h10")), m
     assert m["h1"] <= m["h3"] <= m["h10"]
     log(f"{tag} evaluate('valid'): {len(spec.queries)} grouped queries, "
         f"{n_answers} answers ranked, MRR {m['mrr']:.4f} H@1 {m['h1']:.4f} "
         f"H@10 {m['h10']:.4f} (random weights after a few steps); "
-        f"{seconds:.3f} s, {len(spec.queries) / seconds:.1f} queries/s "
-        f"({card})")
+        f"{seconds:.3f} s, {len(spec.queries) / seconds:.1f} queries/s; "
+        f"{launches} dense hop kernel launches ({card})")
+    return launches
 
 
 def phase_defaults(data_dir: str, card):
@@ -1121,11 +1140,19 @@ def phase_defaults(data_dir: str, card):
     queries = serving_queries(kg, N_BATCHES * pred.batch)
     assert len(queries) == N_BATCHES * pred.batch
     timed_batches(pred, queries, 1)  # warm-up
+    # the main path of the static dense hop's kernel: the served batches
+    reset_dense_hop_launches()
     times, peak = timed_batches(pred, queries, N_BATCHES)
+    launches = dense_hop_launches()
+    n_dense = kinds.count("dense")
+    assert launches == n_dense * N_BATCHES, (launches, n_dense)
     log(f"[6a] served {N_BATCHES} batches of {pred.batch} at registry "
         f"defaults: per-batch ms {[round(t, 3) for t in times]}; mean "
-        f"{np.mean(times):.3f} ms; max_memory_allocated {peak} B ({card})")
+        f"{np.mean(times):.3f} ms; max_memory_allocated {peak} B; "
+        f"dense_hop_static launches {launches} (= {n_dense} dense hops x "
+        f"{N_BATCHES}) ({card})")
     batch_card_vs_cpu(model, pred, queries[:pred.batch], "[6a]")
+    rows = dense_hop_check(pred, queries[:pred.batch], "[6a]", card)
 
     for scan in (True, False):
         step_cfg = dataset_config("static_transductive", "umls",
@@ -1143,7 +1170,17 @@ def phase_defaults(data_dir: str, card):
     trainer = make_trainer(data_dir, "cuda", cfg,
                            steps=UMLS_TRAIN_STEPS)
     train_steps_check(trainer, UMLS_TRAIN_STEPS, "[6a]", card)
-    eval_check(trainer, "[6a]", card)
+    eval_launches = eval_check(trainer, "[6a]", card)
+    # each dense hop of each evaluation batch is one launch
+    spec = trainer.kg.eval_spec("valid")
+    n_eval = -(-len(spec.queries) // trainer.n_tbatch)
+    ekinds = hop_plan(trainer.model_cfg, spec.graph,
+                      trainer.eval_caps["valid"], trainer.n_tbatch)
+    assert eval_launches == ekinds.count("dense") * n_eval > 0, (
+        eval_launches, ekinds, n_eval)
+    return {"serve": rows, "launches": launches,
+            "serve_ms": float(np.mean(times)), "serve_peak": peak,
+            "eval_launches": eval_launches}
 
 
 def record_segment_sums(run, module=None):
@@ -1277,14 +1314,17 @@ def phase_dense_kernel(data_dir: str, card):
     kinds = hop_plan(model.cfg, pred.graph, pred.caps, pred.batch)
     n_dense = kinds.count("dense")
     assert n_dense >= 1 and set(kinds) <= {"sort", "dense"}, kinds
-    per_batch = len(kinds) + n_dense  # 1 a sparse hop, 2 a dense one
+    # the autograd route's sums: 1 a sparse hop, 2 a dense one
+    per_batch = len(kinds) + n_dense
     queries = serving_queries(kg, N_BATCHES * pred.batch)
     q0 = queries[:pred.batch]
 
-    # the dense calls' real inputs, serving and training
-    with torch.inference_mode():
-        calls = record_segment_sums(
-            lambda: model(pred.graph, *batch_tensors(pred, q0), pred.caps))
+    # the dense calls' real inputs, serving and training. A served batch
+    # (no gradients) takes the dense hop kernel, and no segment sum, at its
+    # dense hops: its sums are recorded through the autograd route, which
+    # the training steps take (the same inputs, gradients on)
+    calls = record_segment_sums(
+        lambda: model(pred.graph, *batch_tensors(pred, q0), pred.caps))
     assert len(calls) == per_batch, (len(calls), per_batch)
     dense_calls = calls[-2 * n_dense:]  # per hop: messages, live counts
     assert {c[0].shape[1] for c in dense_calls} == \
@@ -1329,16 +1369,21 @@ def phase_dense_kernel(data_dir: str, card):
         f"{pred.caps.edge_caps}; training (batch {cfg.n_batch}) {tkinds}, "
         f"caps edge {caps.edge_caps}")
 
-    # the main path of this phase: 8 served batches, counted
+    # the main path of this phase: 8 served batches, counted (the dense
+    # hops take the dense hop kernel)
     timed_batches(pred, queries, 1)  # warm-up, not counted
     segment_sum_sorted_checked.launches = 0
+    reset_dense_hop_launches()
     times, peak = timed_batches(pred, queries, N_BATCHES)
     launches = segment_sum_sorted_checked.launches
-    assert launches == per_batch * N_BATCHES, (launches, per_batch)
+    dense_launches = dense_hop_launches()
+    assert launches == (len(kinds) - n_dense) * N_BATCHES, launches
+    assert dense_launches == n_dense * N_BATCHES, dense_launches
     log(f"[6b] served {N_BATCHES} batches of {pred.batch} through the "
         f"kernel: per-batch ms {[round(t, 3) for t in times]}; mean "
         f"{np.mean(times):.3f} ms; {launches} kernel launches (= "
-        f"({len(kinds) - n_dense} sparse + 2 x {n_dense} dense) x "
+        f"{len(kinds) - n_dense} sparse hops x {N_BATCHES}), "
+        f"dense_hop_static {dense_launches} (= {n_dense} dense hops x "
         f"{N_BATCHES}); max_memory_allocated {peak} B ({card})")
     profile_batches(pred, queries[:2 * pred.batch], card)
     batch_card_vs_cpu(model, pred, q0, "[6b]")
@@ -1369,7 +1414,7 @@ def phase_dense_kernel(data_dir: str, card):
         f"{t_dense} dense hops a step)")
     profile_steps(trainer, trainer.train_caps, card)
     return {"serve": serve_rows, "train": train_rows,
-            "launches": launches, "launches_per_batch": per_batch,
+            "launches": launches, "launches_per_batch": len(kinds) - n_dense,
             "train_launches": train_launches,
             "launches_per_step": per_step, "list_sum": list_rows,
             "list_launches": list_launches}
@@ -1701,14 +1746,30 @@ def temporal_profile_steps(trainer, card):
 
 
 def temporal_eval_check(trainer, tag: str, card):
+    """A timed evaluate('valid') (after a warm-up): metrics in range, its
+    dense hops each one launch of the dense hop kernel. Returns (queries
+    a second, dense hop launches, peak memory)."""
+    from redgnn_tpu_torch.models.temporal import temporal_hop_plan
+
     trainer.evaluate("valid")  # warm-up (the split's caps are exact)
+    reset_dense_hop_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     m = trainer.evaluate("valid")
     seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dense_hop_launches()
     cfg = trainer.cfg
     n_q = min(len(trainer.kg.splits["valid"]),
               cfg.max_eval_batches * cfg.eval_batch_size)
     assert m["n"] == n_q, (m["n"], n_q)
+    b = trainer._cap_b(cfg.eval_batch_size)
+    kinds = temporal_hop_plan(trainer.model_cfg, trainer.kg.graph.n_edges,
+                              trainer.caps["eval_valid"], b, True)
+    n_batches = -(-n_q // cfg.eval_batch_size)
+    assert launches == kinds.count("dense") * n_batches, (
+        launches, kinds, n_batches)
     names = (("raw_", "fil_", "fil_t_") if cfg.mode == "extrapolation"
              else ("",))
     for pre in names:
@@ -1723,7 +1784,10 @@ def temporal_eval_check(trainer, tag: str, card):
     log(f"{tag} evaluate('valid'), first {cfg.max_eval_batches} batches of "
         f"{cfg.eval_batch_size}: {int(m['n'])} queries, {shown}, loss "
         f"{m['loss']:.4f} (random weights after {2 * cfg.max_train_batches} "
-        f"steps); {seconds:.3f} s, {n_q / seconds:.1f} queries/s ({card})")
+        f"steps); {seconds:.3f} s, {n_q / seconds:.1f} queries/s; peak "
+        f"{peak} B; dense hop kernel launches {launches} (= "
+        f"{kinds.count('dense')} dense hops x {n_batches} batches) ({card})")
+    return n_q / seconds, launches, peak
 
 
 def temporal_kernel_path(trainer, pred0, queries, kg_cpu, tag: str, card):
@@ -1755,12 +1819,12 @@ def temporal_kernel_path(trainer, pred0, queries, kg_cpu, tag: str, card):
     assert kinds[0] == "sort" and set(kinds) <= {"sort", "dense"}, kinds
     per_batch = len(kinds) + kinds.count("dense")  # dense: 2 calls a hop
     q0 = queries[:pred.batch]
-    # no_grad, not inference_mode: the recorded ids go through autograd in
-    # the backward check below
-    with torch.no_grad():
-        calls = record_segment_sums(
-            lambda: temporal_forward(model, kg, quad_tensors(q0, "cuda"),
-                                     pred.caps), tmod)
+    # gradients on: a served batch (no gradients) takes the dense hop
+    # kernel at its dense hops, so their sums are recorded through the
+    # autograd route, as training takes it
+    calls = record_segment_sums(
+        lambda: temporal_forward(model, kg, quad_tensors(q0, "cuda"),
+                                 pred.caps), tmod)
     assert len(calls) == per_batch, (len(calls), per_batch)
     serve_rows = dense_kernel_check(calls, None, f"{tag} serving", card,
                                     sum_bound=True)
@@ -1800,22 +1864,30 @@ def temporal_kernel_path(trainer, pred0, queries, kg_cpu, tag: str, card):
         f"{len(g1)} parameter gradients bit-equal; hops serving {kinds}, "
         f"training {tkinds}")
 
-    # the main path of this phase: 8 served batches, counted
+    # the main path of this phase: 8 served batches, counted (the dense
+    # hops take the dense hop kernel)
     timed_batches(pred, queries, 1)  # warm-up, not counted
     segment_sum_sorted_checked.launches = 0
+    reset_dense_hop_launches()
     times, peak = timed_batches(pred, queries, N_BATCHES)
     launches = segment_sum_sorted_checked.launches
-    assert launches == per_batch * N_BATCHES, (launches, per_batch)
+    n_dense = kinds.count("dense")
+    dense_launches = dense_hop_launches()
+    assert launches == (len(kinds) - n_dense) * N_BATCHES, launches
+    assert dense_launches == n_dense * N_BATCHES, dense_launches
     log(f"{tag} served {N_BATCHES} batches of {pred.batch} through the "
         f"kernel: per-batch ms {[round(t, 3) for t in times]}; mean "
         f"{np.mean(times):.3f} ms; {launches} kernel launches (= "
-        f"{per_batch} x {N_BATCHES}); {per_step} per train step; "
-        f"max_memory_allocated {peak} B ({card})")
+        f"{len(kinds) - n_dense} sparse hops x {N_BATCHES}), "
+        f"dense_hop_temporal {dense_launches} (= {n_dense} dense hops x "
+        f"{N_BATCHES}); {per_step} per train step; max_memory_allocated "
+        f"{peak} B ({card})")
     profile_batches(pred, queries[:2 * pred.batch], card)
     soft_check(tag, temporal_batch_card_vs_cpu, model, kg, kg_cpu,
                pred.caps, q0, tag)
     return {"serve": serve_rows, "train": train_rows, "launches": launches,
-            "launches_per_batch": per_batch, "launches_per_step": per_step,
+            "launches_per_batch": len(kinds) - n_dense,
+            "launches_per_step": per_step,
             "train_launches": step_launches}
 
 
@@ -2524,6 +2596,309 @@ def hop_static_alone(mod, card):
     return out
 
 
+# ---------------- phase 7i: the dense hop's forward as one kernel each
+
+# the dense hop's forward, one hand-written kernel per model (XLA
+# compositions in the JAX package, no Pallas kernel)
+DENSE_HOP_KERNELS = {
+    "dense_hop_static": {
+        "source": "redgnn_tpu_torch/csrc/dense_hop_static.cu",
+        "replaces": "redgnn_tpu/models/layers.py:159"},
+    "dense_hop_temporal": {
+        "source": "redgnn_tpu_torch/csrc/dense_hop_temporal.cu",
+        "replaces": "redgnn_tpu/models/temporal.py:461"},
+}
+FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+U32 = 2.0 ** -24
+
+
+def dense_hop_calls(run):
+    """[kind, (module, hop args), kernel args] of every fused dense hop
+    that ``run()`` makes, in order: the hop's module and the arguments of
+    RelAttnLayer.dense_fused / TRedGNN._dense_hop_fused ('static' /
+    'temporal'), and those its kernel wrapper was called with."""
+    from redgnn_tpu_torch.models import layers, temporal
+
+    calls, saved = [], []
+    for kind, mod, name in (("static", layers, "dense_hop_static"),
+                            ("temporal", temporal, "dense_hop_temporal")):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, _fn=fn):
+            calls[-1][2] = a
+            return _fn(*a)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapper)
+    for kind, cls, name in (("static", layers.RelAttnLayer, "dense_fused"),
+                            ("temporal", temporal.TRedGNN,
+                             "_dense_hop_fused")):
+        meth = getattr(cls, name)
+
+        def hop(self, *a, _meth=meth, _kind=kind):
+            calls.append([_kind, (self, a), None])
+            return _meth(self, *a)
+
+        saved.append((cls, name, meth))
+        setattr(cls, name, hop)
+    try:
+        run()
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    return calls
+
+
+def dense_hop_work(kind, args, kept: int):
+    """(bytes, float32 FLOPs) the hop must spend: every input read once and
+    every output written once, and the arithmetic per kept (edge, query)
+    that no hoisting removes (the hidden-state projections and the
+    message's own terms; ``kept`` from this run's counts)."""
+    if kind == "static":
+        hidden, vis, rela, tsrc, trel, _, rowptr, wr, wq, ws = args[:10]
+        n, b, d = hidden.shape
+        a = ws.shape[0]
+        flops = 2 * d * a + 4 * a + 3 * d + 4
+    else:
+        (hidden, vis, rela, tsrc, trel, ttime, _, rowptr, times, excl,
+         ekeep, tt, ra, qa, a1s, a2, wdir, bdir, drop) = args[:19]
+        n, b, d = hidden.shape
+        a = 0 if ra is None else ra.shape[1]
+        flops = ((2 * d * a + 4 * a + 4 if ra is not None else 0)
+                 + (2 * d * d if wdir is not None else d)
+                 + (d if tt is not None else 0) + d
+                 + (2 * d if ra is not None else d))
+    moved = sum(t.numel() * t.element_size() for t in args
+                if torch.is_tensor(t) and t is not args[5])  # ttail unread
+    moved += n * b * d * 4 + n * b  # outputs
+    return moved, kept * flops
+
+
+def dense_hop_call_check(kind, hop, args, graph, what: str, card):
+    """The kernel at one dense hop's real inputs: against its plain version
+    (new visited set and counts equal; max |diff| printed), against a
+    float64 referee on the same inputs within (1e-5 + 2 (m - 1) u) sum|x|
+    per output plus twice the plain version's own error
+    (tests/test_torch_cuda.py's bound: the terms' float32 rounding, a
+    float32 sum of the tail's m edges in any order, and the cancellation
+    inside a term that the plain float32 shares), the
+    same bits on a second call; device times with L2 warm (as in the path,
+    where the state was written just before) and flushed, the plain
+    version's; host-clock times of the whole fused hop (terms, kernel,
+    W_h or the epilogue) and of the old route (the autograd route's
+    tensor ops with gradients off; no single PyTorch call computes the
+    hop); the bound, the larger of the bytes the hop must move and the
+    float32 work per kept pair. Returns the row."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    kernel = getattr(dh, f"dense_hop_{kind}")
+    plain = getattr(dh, f"dense_hop_{kind}_plain")
+    plain_args = args[:-1]  # the plain versions take no work plan
+    got, again = kernel(*args), kernel(*args)
+    want = plain(*plain_args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+        "two calls gave different bits"
+    assert torch.equal(got[1], want[1]), "new visited sets differ"
+    counts = [int(c) for c in got[2:]]
+    assert counts == [int(c) for c in want[2:]], (counts, want[2:])
+    err = float((got[0] - want[0]).abs().max())
+
+    def f64(x):
+        return (x.double() if torch.is_tensor(x)
+                and x.dtype == torch.float32 else x)
+
+    ref = [f64(x) for x in args]
+    hidden, ttail = args[0], args[5] if kind == "static" else args[6]
+    n = hidden.shape[0]
+    if kind == "static":
+        msg, _ = dh.static_messages(*(ref[i] for i in (0, 1, 2, 3, 4, 7, 8,
+                                                         9, 10, 11)))
+        want64 = torch.zeros((n,) + msg.shape[1:], dtype=torch.float64,
+                             device=hidden.device).index_add_(
+                                 0, ttail.long(), msg)
+        scale = 1.0
+    else:
+        msg, _ = dh.temporal_messages(*(ref[i] for i in (
+            0, 1, 2, 3, 4, 5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)))
+        want64 = dh.dense_hop_temporal_plain(*ref[:-1])[0]
+        scale = 1.0 / (1.0 - args[19]) if args[18] is not None else 1.0
+    s_abs = torch.zeros_like(want64).index_add_(0, ttail.long(), msg.abs())
+    del msg
+    s_abs = s_abs * scale + 4 * U32 * want64.abs()
+    m = torch.bincount(ttail.long(), minlength=n).to(torch.float64)
+    # a term that is itself a sum (the transform's, the attention's)
+    # carries its own cancellation, which the plain version's float32
+    # shares: twice its error is allowed besides
+    sum_bound = (1e-5 + 2 * torch.clamp(m - 1, min=0)[:, None, None]
+                 * U32) * s_abs
+    plain_err = (want[0].double() - want64).abs()
+    bound = sum_bound + 2 * plain_err
+    diff = (got[0].double() - want64).abs()
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+    ratio = float((diff / torch.clamp(bound, min=1e-300)).max())
+    # the shares of the sum's bound alone, without the plain version's
+    # error, that the kernel and the plain float32 version reach: above 1
+    # where a term's own cancellation carries the check
+    sum_bound = torch.clamp(sum_bound, min=1e-300)
+    ratio_sum = float((diff / sum_bound).max())
+    ratio_plain = float((plain_err / sum_bound).max())
+    del want64, s_abs, sum_bound, plain_err, bound, diff
+
+    t_k = device_ms(lambda: kernel(*args))
+    t_f = flushed_ms(lambda: kernel(*args))
+    t_p = device_ms(lambda: plain(*plain_args), calls=5, reps=4)
+    module, hop_args = hop
+    with torch.no_grad():
+        if kind == "static":
+            fused = lambda: module.dense_fused(*hop_args)  # noqa: E731
+            old = lambda: module.dense_autograd(  # noqa: E731
+                *hop_args[:8], graph.tsrc_order, graph.rowptr)
+        else:
+            fused = lambda: module._dense_hop_fused(*hop_args)  # noqa: E731
+            old = lambda: module._dense_hop_autograd(  # noqa: E731
+                *hop_args[:11], graph.tsrc_order, graph.rowptr,
+                *hop_args[11:14])
+        t_hop = call_ms(fused, rounds=3, iters=10)[0]
+        t_old = call_ms(old, rounds=3, iters=5, warmup=2)[0]
+    moved, flops = dense_hop_work(kind, args, counts[-1])
+    b_bytes = moved / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / FP32_FLOPS_PER_S * 1e3
+    b_ms, by = max((b_bytes, "bytes"), (b_ops, "operations"))
+    n_, b_, d_ = hidden.shape
+    log(f"{what} {kind} dense call N={n_} b={b_} d={d_} "
+        f"{str(hidden.dtype)[6:]} E={args[3].shape[0]}: {counts[-1]} kept "
+        f"(edge, query) pairs; kernel == plain (visited, counts {counts}), "
+        f"max |diff| {err:.3g}, at most {ratio:.3g} of the float64 bound "
+        f"({ratio_sum:.3g} of its (1e-5 + 2(m-1)u) sum|x| term alone, "
+        f"the plain version {ratio_plain:.3g}); "
+        f"same bits twice; kernel {t_k:.4f} ms with L2 warm, {t_f:.4f} ms "
+        f"flushed; plain {t_p:.4f} ms; whole fused hop {t_hop:.4f} ms, old "
+        f"route {t_old:.4f} ms (host clock, eager, least of 3 rounds); "
+        f"bound {b_ms * 1e3:.2f} us by {by} ({moved / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP) = {b_ms / t_k:.1%} of the kernel's time "
+        f"({card})")
+    return {"kind": kind, "N": n_, "b": b_, "d": d_,
+            "E": int(args[3].shape[0]), "kept": counts[-1],
+            "max_abs_err": err, "bound_share": ratio,
+            "sum_bound_share": ratio_sum,
+            "plain_sum_bound_share": ratio_plain, "ms": t_k,
+            "ms_l2_flushed": t_f, "plain_ms": t_p, "hop_ms": t_hop,
+            "old_route_ms": t_old, "bound_ms": b_ms, "bound_by": by,
+            "bytes": moved, "flops": flops}
+
+
+def dense_hop_check(pred, q0, tag: str, card):
+    """Phase 7i at a cell: the dense hop kernel at every dense call of one
+    served batch of ``q0`` (`dense_hop_call_check`). Returns the rows."""
+    calls = dense_hop_calls(lambda: pred.predict(
+        q0[:, 0], q0[:, 1], q0[:, 3] if pred.temporal else None))
+    assert calls and all(c[2] is not None for c in calls), len(calls)
+    with torch.no_grad():  # the recorded tensors are inference tensors
+        rows = [dense_hop_call_check(kind, hop, args, pred.graph,
+                                     f"{tag} 7i serving", card)
+                for kind, hop, args in calls]
+    del calls
+    return rows
+
+
+def dense_hop_launches():
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    return dh.dense_hop_static.launches + dh.dense_hop_temporal.launches
+
+
+def reset_dense_hop_launches():
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    dh.dense_hop_static.launches = dh.dense_hop_temporal.launches = 0
+
+
+DENSE_ALONE_STEPS = 4  # train steps of the trainers --phase 7i builds
+
+
+def phase_dense_alone(mod, card):
+    """Phase 7i alone (``--phase 7i``): through ``mod``'s own functions,
+    7a's dir, trainer and Predictor as phase 7 builds them
+    (``N_BATCHES`` timed served batches, their peak memory, a timed
+    ``evaluate('valid')`` of its first T_EVAL_BATCHES batches and its
+    peak), then the umls entry at its defaults (served batches and an
+    evaluation, the same numbers); where ``mod`` has phase 7i, the
+    kernels at one served batch's dense calls of each. ``mod`` is this
+    script or, with ``--tree DIR``, DIR's chip_smoke.py running DIR's
+    package: the parent tree's batches on the same card. Returns the
+    numbers by cell."""
+    from redgnn_tpu_torch.cli.train import load_temporal_kg
+    from redgnn_tpu_torch.serve import Predictor
+    from redgnn_tpu_torch.train.temporal_loop import TemporalTrainer
+    from redgnn_tpu_torch.utils.config import dataset_config
+
+    out = {}
+
+    def timed_eval(trainer, n_q):
+        trainer.evaluate("valid")  # warm-up; the split's caps are exact
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.evaluate("valid")
+        seconds = time.perf_counter() - t0
+        return n_q / seconds, torch.cuda.max_memory_allocated()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mod.write_icews14_sized(tmp, False)
+        cfg = dataset_config("temporal", "ICEWS14_TeMP",
+                             max_train_batches=DENSE_ALONE_STEPS,
+                             max_eval_batches=T_EVAL_BATCHES["ICEWS14_TeMP"])
+        trainer = TemporalTrainer(load_temporal_kg(tmp, cfg, "cuda"), cfg)
+        with torch.no_grad():  # as phase 7a scales it
+            trainer.model.classifier_w.abs_().mul_(1e-6)
+        pred = Predictor.from_trainer(trainer, split="test", top_k=10)
+        queries = trainer.kg.splits["test"][:N_BATCHES * pred.batch]
+        mod.timed_batches(pred, queries, 1)  # warm-up
+        times, peak = mod.timed_batches(pred, queries, N_BATCHES)
+        n_q = min(len(trainer.kg.splits["valid"]),
+                  cfg.max_eval_batches * cfg.eval_batch_size)
+        qps, eval_peak = timed_eval(trainer, n_q)
+        log(f"[7a] 7i served {N_BATCHES} batches of {pred.batch}: per-batch "
+            f"ms {[round(t, 3) for t in times]}; mean {np.mean(times):.3f} "
+            f"ms; max_memory_allocated {peak} B; evaluate('valid') of "
+            f"{n_q} queries {qps:.1f} queries/s, max_memory_allocated "
+            f"{eval_peak} B ({card})")
+        out["ICEWS14_TeMP"] = {"serve_ms": float(np.mean(times)),
+                               "serve_peak": peak, "eval_qps": qps,
+                               "eval_peak": eval_peak}
+        if hasattr(mod, "dense_hop_check"):
+            rows = mod.dense_hop_check(pred, queries[:pred.batch], "[7a]",
+                                       card)
+            out["ICEWS14_TeMP"]["kernel_ms"] = [r["ms"] for r in rows]
+            out["ICEWS14_TeMP"]["old_route_ms"] = [r["old_route_ms"]
+                                                   for r in rows]
+        del trainer, pred
+    with tempfile.TemporaryDirectory() as tmp:
+        mod.write_umls_sized_kg(tmp)
+        kg, cfg, _, pred = mod.build_slice(tmp, "cuda", "umls")
+        queries = mod.serving_queries(kg, N_BATCHES * pred.batch)
+        mod.timed_batches(pred, queries, 1)  # warm-up
+        times, peak = mod.timed_batches(pred, queries, N_BATCHES)
+        trainer = mod.make_trainer(tmp, "cuda", cfg,
+                                   steps=DENSE_ALONE_STEPS)
+        qps, eval_peak = timed_eval(trainer, len(
+            trainer.kg.eval_spec("valid").queries))
+        log(f"[umls] 7i served {N_BATCHES} batches of {pred.batch}: "
+            f"per-batch ms {[round(t, 3) for t in times]}; mean "
+            f"{np.mean(times):.3f} ms; max_memory_allocated {peak} B; "
+            f"evaluate('valid') {qps:.1f} grouped queries/s, "
+            f"max_memory_allocated {eval_peak} B ({card})")
+        out["umls"] = {"serve_ms": float(np.mean(times)), "serve_peak": peak,
+                       "eval_qps": qps, "eval_peak": eval_peak}
+        if hasattr(mod, "dense_hop_check"):
+            rows = mod.dense_hop_check(pred, queries[:pred.batch], "[umls]",
+                                       card)
+            out["umls"]["kernel_ms"] = [r["ms"] for r in rows]
+            out["umls"]["old_route_ms"] = [r["old_route_ms"] for r in rows]
+    return out
+
+
 def phase_temporal(data_dir: str, name: str, tag: str, card):
     """Phase 7a / 7c: the registry entry ``name`` on an ICEWS14-sized dir
     (loaded as the CLI loads it) at its defaults, then (7b, and within 7c)
@@ -2583,20 +2958,27 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
     # Predictor's profile), so the split is served in that order
     queries = kg.splits["test"][:N_BATCHES * pred.batch]
     timed_batches(pred, queries, 1)  # warm-up
-    # the main path of the owner fill's kernel: the served batches, counted
+    # the main path of the owner fill's kernel and of the temporal dense
+    # hop's: the served batches, counted
     slot_owner.launches = list_sum.launches = 0
+    reset_dense_hop_launches()
     times, peak = timed_batches(pred, queries, N_BATCHES)
+    n_dense = kinds.count("dense")
+    n_sparse = len(kinds) - n_dense
     served = {"slot_owner": slot_owner.launches,
-              "list_sum": list_sum.launches}
-    n_sparse = len(kinds) - kinds.count("dense")
-    assert served == {"slot_owner": n_sparse * N_BATCHES, "list_sum": 0}, \
-        served
+              "list_sum": list_sum.launches,
+              "dense_hop": dense_hop_launches()}
+    assert served == {"slot_owner": n_sparse * N_BATCHES, "list_sum": 0,
+                      "dense_hop": n_dense * N_BATCHES}, served
     log(f"{tag} served {N_BATCHES} batches of {pred.batch} at registry "
         f"defaults (Predictor.from_trainer): per-batch ms "
         f"{[round(t, 3) for t in times]}; mean {np.mean(times):.3f} ms; "
         f"max_memory_allocated {peak} B; slot_owner launches "
-        f"{served['slot_owner']} (= {n_sparse} sparse hops x {N_BATCHES}) "
-        f"({card})")
+        f"{served['slot_owner']} (= {n_sparse} sparse hops x {N_BATCHES}), "
+        f"dense_hop_temporal {served['dense_hop']} (= {n_dense} dense hops "
+        f"x {N_BATCHES}) ({card})")
+    dense_rows = (dense_hop_check(pred, queries[:pred.batch], tag, card)
+                  if n_dense else [])
     profile_batches(pred, queries[:2 * pred.batch], card)
     soft_check(tag, temporal_batch_card_vs_cpu, trainer.model, kg, kg_cpu,
                pred.caps, queries[:pred.batch], tag)
@@ -2647,15 +3029,20 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
         * steps, main
     assert main["list_sum"] > 0 or forecasting, main
     temporal_profile_steps(trainer, card)
-    temporal_eval_check(trainer, tag, card)
+    eval_qps, eval_launches, eval_peak = temporal_eval_check(trainer, tag,
+                                                             card)
     kernel["gather"] = gather_kernels_check(trainer, pred, queries, main,
                                             steps, tag, card)
     kernel["hop_index"] = hop_index_check(trainer, pred, queries, main,
                                           steps, tag, card)
     kernel["hop_index"]["slot_owner"]["served"] = served["slot_owner"]
+    kernel["dense_hop"] = {"serve": dense_rows,
+                           "launches": served["dense_hop"],
+                           "eval_launches": eval_launches}
     kernel.update(serve_ms=float(np.mean(times)), step_ms=step_ms,
                   walk_s=walk_s, walks=walks, serve_peak=peak,
-                  train_peak=train_peak)
+                  train_peak=train_peak, eval_qps=eval_qps,
+                  eval_peak=eval_peak)
     return kernel
 
 
@@ -3716,8 +4103,10 @@ def bf16_serve_and_train(data_dir: str, dataset: str, tag: str, card,
         queries = serving_queries(kg, N_BATCHES * pred.batch)
         timed_batches(pred, queries, 1)  # warm-up, not counted
         segment_sum_sorted_checked.launches = 0
+        reset_dense_hop_launches()
         times, peak = timed_batches(pred, queries, N_BATCHES)
         launches = segment_sum_sorted_checked.launches
+        dense_launches = dense_hop_launches()
         trainer = make_trainer(data_dir, "cuda", dataclasses.replace(
             cfg, scan_chunk=BF16_STEPS), steps=BF16_STEPS)
         segment_sum_sorted_checked.launches = 0
@@ -3727,6 +4116,7 @@ def bf16_serve_and_train(data_dir: str, dataset: str, tag: str, card,
                           queries=queries, trainer=trainer,
                           serve_ms=float(np.mean(times)), serve_peak=peak,
                           serve_launches=launches,
+                          serve_dense_launches=dense_launches,
                           train_launches=segment_sum_sorted_checked.launches,
                           step_ms=step_ms, step_peak=step_peak)
     f, b = out["float32"], out["bfloat16"]
@@ -3798,11 +4188,24 @@ def phase_bf16_umls(data_dir: str, card):
     assert "bitmap" in tkinds and "dense" in tkinds, tkinds
     log(f"[10b] hops in bf16: serving (batch {pred.batch}) {kinds}, "
         f"training (batch {b['cfg'].n_batch}) {tkinds}")
+    # the dense hops of the served batches launch the static dense hop
+    # kernel, in bf16 as in float32
+    for dtype, d in out.items():
+        assert d["serve_dense_launches"] == kinds.count("dense") * N_BATCHES, \
+            (dtype, d["serve_dense_launches"])
+    log(f"[10b] dense_hop_static launches over {N_BATCHES} served batches: "
+        f"bf16 {b['serve_dense_launches']}, float32 "
+        f"{out['float32']['serve_dense_launches']} (= "
+        f"{kinds.count('dense')} dense hops x {N_BATCHES})")
+    rows = dense_hop_check(pred, b["queries"][:pred.batch], "[10b] bf16",
+                           card)
     bf16_batch_check(model, pred, b["queries"][:pred.batch], "[10b]")
     step_card_vs_cpu(data_dir, tr, caps, f"[10b] bf16, hops {tkinds}:",
                      0.0, BF16_GRAD_TOL, loss_rtol=1e-4)
     bf16_walks_check(b["kg"], model.cfg.n_layer, "[10b]", card)
     return {"serve_ms": b["serve_ms"], "step_ms": b["step_ms"],
+            "dense_rows": rows,
+            "dense_launches": b["serve_dense_launches"],
             "f32_serve_ms": out["float32"]["serve_ms"],
             "f32_step_ms": out["float32"]["step_ms"]}
 
@@ -3811,8 +4214,8 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=["7g", "7h"],
-                    help="run phase 7g or 7h alone (after phases 1-2); "
+    ap.add_argument("--phase", choices=["7g", "7h", "7i"],
+                    help="run phase 7g, 7h or 7i alone (after phases 1-2); "
                     "prints its times as one JSON line, and no 'ok' line")
     ap.add_argument("--tree", help="with --phase: a checkout of another "
                     "commit (e.g. the parent, unpacked by git archive); its "
@@ -3836,8 +4239,10 @@ def main(argv=None) -> int:
         mod.phase_build()
         if args.phase == "7g":
             res = {"gather": phase_gather_alone(mod, smi)}
-        else:
+        elif args.phase == "7h":
             res = {"cells": phase_hop_alone(mod, smi)}
+        else:
+            res = {"cells": phase_dense_alone(mod, smi)}
         log(json.dumps({"phase": args.phase, "tree": args.tree or ".",
                         "card": smi, **res}))
         return 0
@@ -3868,7 +4273,7 @@ def main(argv=None) -> int:
     took("phases 1-5")
     with tempfile.TemporaryDirectory() as tmp:
         write_umls_sized_kg(tmp)
-        phase_defaults(tmp, card)
+        umls = phase_defaults(tmp, card)
         kernel["dense"] = phase_dense_kernel(tmp, card)
     took("phase 6")
     kernel["temporal"] = {}
@@ -3948,6 +4353,29 @@ def main(argv=None) -> int:
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
             "library_ms": sum(r["library_ms"] for r in rows)})
+    # phase 7i's kernels: each over one served batch's dense calls of its
+    # main path (umls's defaults, 7a), launches over the N_BATCHES served
+    # batches; library_ms is the old route's (the autograd route's tensor
+    # ops with gradients off): no single PyTorch call computes the hop
+    t7a = kernel["temporal"]["ICEWS14_TeMP"]["dense_hop"]
+    picks = {"dense_hop_static": (umls["serve"], umls["launches"],
+                                  kernel["bf16"]["umls"]["dense_rows"]),
+             "dense_hop_temporal": (t7a["serve"], t7a["launches"], [])}
+    for kname, where in DENSE_HOP_KERNELS.items():
+        rows, launches, more = picks[kname]
+        bound_by = max(("bytes", sum(r["bytes"] for r in rows)
+                        / HBM_BYTES_PER_S),
+                       ("operations", sum(r["flops"] for r in rows)
+                        / FP32_FLOPS_PER_S), key=lambda x: x[1])[0]
+        entries.append({
+            "name": kname, "route": "cuda", **where, "launches": launches,
+            "max_abs_err": max([0.0] + [r["max_abs_err"]
+                                        for r in rows + more]),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": bound_by,
+            "library_ms": sum(r["old_route_ms"] for r in rows)})
     log(json.dumps({"kernels": entries}))
     assert name == torch.cuda.get_device_name(0), name
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # every csrc/<name>.cu the port launches
 KERNELS = ("segment_sum_sorted", "range_sum", "take_rows_grad", "list_sum",
-           "slot_owner")
+           "slot_owner", "dense_hop_static", "dense_hop_temporal")
 
 
 def _nvcc() -> str:

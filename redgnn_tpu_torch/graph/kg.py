@@ -17,6 +17,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from redgnn_tpu_torch.ops.dense_hop import tail_items as tail_items_of
 from redgnn_tpu_torch.utils.device import resolve_device
 
 
@@ -65,13 +66,21 @@ class DeviceGraph:
     ``tsrc/trel/ttail/tail_rowptr`` (optional) are the tail-sorted view
     of dense-mode hops; graphs built without them disable dense mode.
     ``tsrc_order`` (optional) is `build_src_order` of ``tsrc``: a dense
-    hop's gather backward on a CUDA device needs it."""
+    hop's gather backward on a CUDA device needs it.
+
+    ``tail_items`` is the dense hop kernels' (`ops.dense_hop`) work plan
+    of the tail ranges (`ops.dense_hop.tail_items`), built here whenever
+    ``tail_rowptr`` is given (a temporal graph, whose tail-sorted table
+    lives beside it, passes its own). ``n_time`` (a temporal table's) is
+    the count of time ids, past every edge time, whose time term a dense
+    hop computes once each."""
 
     FIELDS = ("rowptr", "rel", "tail", "tsrc", "trel", "ttail",
               "tail_rowptr", "tsrc_order")
 
     def __init__(self, rowptr, rel, tail, tsrc=None, trel=None, ttail=None,
-                 tail_rowptr=None, tsrc_order=None):
+                 tail_rowptr=None, tsrc_order=None, tail_items=None,
+                 n_time: int | None = None):
         self.rowptr = rowptr
         self.rel = rel
         self.tail = tail
@@ -80,6 +89,10 @@ class DeviceGraph:
         self.ttail = ttail
         self.tail_rowptr = tail_rowptr
         self.tsrc_order = tsrc_order
+        if tail_items is None and tail_rowptr is not None:
+            tail_items = tail_items_of(tail_rowptr)
+        self.tail_items = tail_items
+        self.n_time = n_time
 
     @property
     def n_edges(self) -> int:
@@ -98,9 +111,10 @@ class DeviceGraph:
         return self.rowptr.device
 
     def to(self, device) -> "DeviceGraph":
-        return DeviceGraph(*(None if a is None else a.to(device)
-                             for a in (getattr(self, f)
-                                       for f in self.FIELDS)))
+        return DeviceGraph(*(None if getattr(self, f) is None
+                             else getattr(self, f).to(device)
+                             for f in self.FIELDS + ("tail_items",)),
+                           n_time=self.n_time)
 
     @classmethod
     def from_csr(cls, rowptr, rel, tail, n_ent: int,

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from redgnn_tpu_torch.graph.kg import DeviceGraph, build_src_order
+from redgnn_tpu_torch.ops.dense_hop import tail_items
 from redgnn_tpu_torch.utils.device import resolve_device
 
 
@@ -306,10 +307,13 @@ class TemporalKG:
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
 
-        # the dense hop's gather backward sums by the sources' order
+        # the dense hop's gather backward sums by the sources' order; its
+        # forward kernel walks the tail ranges by tail_items and takes the
+        # time term once per time id (n_time covers every edge time)
         self.graph = DeviceGraph(
             dev(rowptr), dev(rel), dev(tail),
-            tsrc_order=dev(build_src_order(self.dense_np[0])))
+            tsrc_order=dev(build_src_order(self.dense_np[0])),
+            tail_items=tail_items(dev(tail_rowptr)), n_time=self.n_time)
         self.etime = dev(time)
         self.ekey = dev(ekey)
         self.selfloop_slot = dev(selfloop_slot)

@@ -40,6 +40,11 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
+from redgnn_tpu_torch.ops.dense_hop import (
+    dense_hop_static,
+    grad_free,
+    static_terms,
+)
 from redgnn_tpu_torch.ops.frontier import Frontier
 from redgnn_tpu_torch.ops.gather import (
     gather_bf16,
@@ -215,14 +220,23 @@ class RelAttnLayer(nn.Module):
               ttail: torch.Tensor, tail_rowptr: torch.Tensor,
               dense_agg: str = "sorted_scatter",
               tsrc_order: torch.Tensor | None = None,
-              rowptr: torch.Tensor | None = None):
+              rowptr: torch.Tensor | None = None,
+              tail_items: torch.Tensor | None = None):
         """One hop over the ENTIRE tail-sorted edge table, batch-shared
         (saturated-frontier regime).
 
         hidden_dense: (n_ent, b, d); visited: (n_ent, b) bool. Returns
         (act(W_h agg) (n_ent, b, d), new_visited (n_ent, b), live-edge
-        count). The packed (state, visited) rows are gathered by
-        `gather_rows_listed`, whose backward sums each source's edges
+        count).
+
+        When no gradient can flow (`ops.dense_hop.grad_free`: gradients
+        off, or neither the state nor a parameter requires one) the sum
+        before ``W_h`` is `ops.dense_hop.dense_hop_static`: one kernel on a
+        CUDA device (``tail_items`` is the graph's work plan of it, which
+        the kernel needs), its plain version on the CPU; ``dense_agg``
+        picks only the plain version's summation. Otherwise it is
+        `dense_autograd`, whose packed (state, visited) rows are gathered
+        by `gather_rows_listed`, whose backward sums each source's edges
         through ``tsrc_order`` and the CSR's ``rowptr`` (the graph's): the
         list-sum kernel on a CUDA device, which needs both; the CPU does
         not. ``dense_agg='sorted_scatter'`` sums the (E, b*d) messages
@@ -237,6 +251,33 @@ class RelAttnLayer(nn.Module):
         hop. The sums are the same function either way; with
         ``segment_impl='xla'`` (the default) the two packages agree in route
         as well."""
+        if grad_free(hidden_dense, *self.parameters()):
+            return self.dense_fused(hidden_dense, visited, q_rel, tsrc, trel,
+                                    ttail, tail_rowptr, dense_agg,
+                                    tail_items)
+        return self.dense_autograd(hidden_dense, visited, q_rel, tsrc, trel,
+                                   ttail, tail_rowptr, dense_agg, tsrc_order,
+                                   rowptr)
+
+    def dense_fused(self, hidden_dense, visited, q_rel, tsrc, trel, ttail,
+                    tail_rowptr, dense_agg="sorted_scatter", tail_items=None):
+        """`dense` as `ops.dense_hop.dense_hop_static` (no gradient)."""
+        # float32: the table's own dtype (a float64 referee stays so)
+        rela_c = (self.rela_embed if self.cdt == torch.float32
+                  else self.rela_embed.to(self.cdt))
+        wr, wq = static_terms(rela_c, q_rel, self.Wr_attn.weight,
+                              self.Wqr_attn.weight, self.Wqr_attn.bias)
+        agg, new_visited, n_live = dense_hop_static(
+            hidden_dense.to(rela_c.dtype), visited, rela_c, tsrc, trel,
+            ttail, tail_rowptr, wr, wq, self.Ws_attn.weight,
+            self.w_alpha.weight[0], self.w_alpha.bias, dense_agg, tail_items)
+        return ACTIVATIONS[self.act](self.W_h(agg)), new_visited, n_live
+
+    def dense_autograd(self, hidden_dense, visited, q_rel, tsrc, trel, ttail,
+                       tail_rowptr, dense_agg="sorted_scatter",
+                       tsrc_order=None, rowptr=None):
+        """`dense` through autograd-able tensor ops (the route that
+        training takes)."""
         d = self.rela_embed.shape[1]
         n, b = visited.shape
         e_all = tsrc.shape[0]

@@ -227,7 +227,7 @@ class RedGNN(nn.Module):
                 new_hidden, new_vis, n_live = layer.dense(
                     hd, vis, rels, graph.tsrc, graph.trel, graph.ttail,
                     graph.tail_rowptr, cfg.dense_agg, graph.tsrc_order,
-                    graph.rowptr)
+                    graph.rowptr, graph.tail_items)
                 if drop:
                     new_hidden = _dropout(new_hidden, cfg.dropout, generator)
                 # GRU carry: hd is zero at never-visited nodes, exactly

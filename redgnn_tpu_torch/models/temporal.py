@@ -52,7 +52,6 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -60,6 +59,12 @@ from redgnn_tpu_torch.graph.calibrate import FrontierCaps
 from redgnn_tpu_torch.graph.kg import DeviceGraph
 from redgnn_tpu_torch.models.layers import _uniform_init_
 from redgnn_tpu_torch.models.redgnn import _dropout, _resolve_dedup
+from redgnn_tpu_torch.ops.dense_hop import (
+    ACTS,
+    dense_hop_temporal,
+    grad_free,
+    temporal_terms,
+)
 from redgnn_tpu_torch.ops.frontier import (
     SENTINEL,
     expand_frontier,
@@ -70,14 +75,8 @@ from redgnn_tpu_torch.ops.gather import gather_rows_listed, take_rows
 from redgnn_tpu_torch.ops.segment import segment_softmax, segment_sum
 from redgnn_tpu_torch.utils.device import resolve_device
 
-TEMPORAL_ACTS = {
-    "relu": torch.relu,
-    "tanh": torch.tanh,
-    "sigmoid": torch.sigmoid,
-    "idd": lambda x: x,
-    "softplus": F.softplus,
-    "leakyrelu": lambda x: F.leaky_relu(x, 0.01),
-}
+# one table of activations with the dense hop kernel's (its codes)
+TEMPORAL_ACTS = {name: fn for name, (_, fn) in ACTS.items()}
 
 
 def periodic_time_embedding(x: torch.Tensor, freq: torch.Tensor,
@@ -327,7 +326,8 @@ class TRedGNN(nn.Module):
                     ttime, ttail, tail_rowptr, graph.tsrc_order,
                     graph.rowptr, excl_keep,
                     generator if drop_dense else None,
-                    generator if edrop else None)
+                    generator if edrop else None, graph.tail_items,
+                    graph.n_time)
                 aux["edge_overflow"].append(false)
                 aux["node_overflow"].append(false)
                 aux["num_nodes"].append(n_nodes)
@@ -512,7 +512,7 @@ class TRedGNN(nn.Module):
 
     def _dense_hop(self, state, rela, a1_k, a2_k, rels, times, tsrc, trel,
                    ttime, ttail, tail_rowptr, tsrc_order, rowptr, excl_keep,
-                   drop_gen, edrop_gen):
+                   drop_gen, edrop_gen, tail_items, n_time):
         """One hop over the whole tail-sorted edge table, shared by the
         batch (saturated-frontier regime; `temporal.py:461-572`): the
         sparse hop's math with edge metadata read in order, one packed
@@ -520,7 +520,24 @@ class TRedGNN(nn.Module):
         the static per-tail ranges. The gather's backward sums each
         source's edges through ``tsrc_order`` and the CSR's ``rowptr``
         (`gather_rows_listed`: the list-sum kernel on a CUDA device, which
-        raises without them)."""
+        raises without them).
+
+        When no gradient can flow (`ops.dense_hop.grad_free`) the hop is
+        `_dense_hop_fused`; otherwise `_dense_hop_autograd`."""
+        if grad_free(state[0], *self.parameters()):
+            return self._dense_hop_fused(
+                state, rela, a1_k, a2_k, rels, times, tsrc, trel, ttime,
+                ttail, tail_rowptr, excl_keep, drop_gen, edrop_gen,
+                tail_items, n_time)
+        return self._dense_hop_autograd(
+            state, rela, a1_k, a2_k, rels, times, tsrc, trel, ttime, ttail,
+            tail_rowptr, tsrc_order, rowptr, excl_keep, drop_gen, edrop_gen)
+
+    def _dense_hop_autograd(self, state, rela, a1_k, a2_k, rels, times, tsrc,
+                            trel, ttime, ttail, tail_rowptr, tsrc_order,
+                            rowptr, excl_keep, drop_gen, edrop_gen):
+        """`_dense_hop` through autograd-able tensor ops (the route that
+        training takes)."""
         cfg = self.cfg
         hidden_dense, visited = state
         d = cfg.hidden_dim
@@ -611,4 +628,53 @@ class TRedGNN(nn.Module):
         h = torch.where(new_visited[..., None], h, 0.0)
         n_nodes = torch.sum(new_visited).to(torch.int32)
         n_edges = torch.sum(keep).to(torch.int32)
+        return (h, new_visited), n_nodes, n_edges
+
+    def _dense_hop_fused(self, state, rela, a1_k, a2_k, rels, times, tsrc,
+                         trel, ttime, ttail, tail_rowptr, excl_keep,
+                         drop_gen, edrop_gen, tail_items, n_time):
+        """`_dense_hop` as `ops.dense_hop.dense_hop_temporal`: one kernel on
+        a CUDA device (``tail_items``: the graph's work plan of it), its
+        plain version on the CPU. The time term is computed once per (time
+        id, query) over the graph's ``n_time`` time ids and the
+        attention's relation and query terms once each
+        (`ops.dense_hop.temporal_terms`). The dropout
+        masks are drawn as the autograd route draws them, in its order
+        (edge dropout, then dropout), so one generator gives the same
+        masks either way."""
+        cfg = self.cfg
+        hidden_dense, visited = state
+        n, b = visited.shape
+        dev = hidden_dense.device
+        edge_keep = drop_keep = None
+        if edrop_gen is not None:
+            edge_keep = torch.rand((tsrc.shape[0], b), generator=edrop_gen,
+                                   device=dev) < 1.0 - cfg.edge_dropout
+        if drop_gen is not None:
+            shape = (n, b, cfg.hidden_dim)
+            drop_keep = (torch.zeros(shape, dtype=torch.bool, device=dev)
+                         if cfg.dropout >= 1.0
+                         else torch.rand(shape, generator=drop_gen,
+                                         device=dev) < 1.0 - cfg.dropout)
+        periodic = cfg.use_time and cfg.time_embedding == "periodic"
+        absolute = cfg.use_time and not periodic
+        ra, qa, tt = temporal_terms(
+            rela, a1_k, rels, times, n_time,
+            self.time_freq if periodic else None,
+            self.time_w if periodic else None,
+            self.time_b if periodic else None,
+            self.time_embed_abs if absolute else None,
+            use_attention=cfg.use_attention)
+        d = cfg.hidden_dim
+        linear = cfg.direction_transform == "linear"
+        names = ("past", "now", "future")
+        wdir = (torch.stack([getattr(self, f"{k}_linear") for k in names])
+                if linear else None)
+        bdir = (None if linear else
+                torch.stack([getattr(self, f"{k}_bias") for k in names]))
+        h, new_visited, n_nodes, n_edges = dense_hop_temporal(
+            hidden_dense, visited, rela, tsrc, trel, ttime, ttail,
+            tail_rowptr, times.to(torch.int32), excl_keep, edge_keep, tt, ra,
+            qa, a1_k[:d], a2_k, wdir, bdir, drop_keep, cfg.dropout, cfg.act,
+            cfg.dense_agg, tail_items)
         return (h, new_visited), n_nodes, n_edges

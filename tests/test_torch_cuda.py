@@ -1161,3 +1161,314 @@ def test_edge_parallel_step_on_card_matches_single_process(card):
             torch.testing.assert_close(
                 o["grads"][name], want, rtol=1e-4,
                 atol=1e-5 * float(want.abs().max()), msg=name)
+
+
+# ------------------------------------------ the dense hop's forward kernels
+
+def _dense_table(rng, n, e, hub, dev):
+    """(tsrc, ttail, tail_rowptr) int32 of a tail-sorted table of ``e``
+    edges over ``n`` entities; ``hub``: a quarter of them into one tail
+    (hundreds of chunks of the kernel's walk), the rest random (empty
+    tails among them)."""
+    tail = rng.integers(0, n, e)
+    if hub:
+        tail[: e // 4] = min(3, n - 1)
+    src = rng.integers(0, n, e)
+    order = np.argsort(tail, kind="stable")
+    tail, src = tail[order], src[order]
+    rowptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(tail, minlength=n), out=rowptr[1:])
+    return [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (src, tail, rowptr)]
+
+
+def _f64(x):
+    """A float32 input as float64 for the referee (bf16 tables stay bf16:
+    the referee promotes their rows as the kernel does)."""
+    return x.double() if torch.is_tensor(x) and x.dtype == torch.float32 \
+        else x
+
+
+def _dense_bound(got, want, s_abs, ttail, n, plain):
+    """|got - want| <= (1e-5 + 2 (m - 1) u) sum|x| + 2 |plain - want| per
+    (tail, query, channel), m the tail's edges: the terms' own float32
+    rounding (relative 1e-5 of each term), a recursive float32 sum of m
+    terms in any order, against float64, and twice the plain float32
+    version's own error (a term that is itself a sum, the transform's or
+    the attention's, carries cancellation that both float32 routes
+    share)."""
+    m = torch.bincount(ttail.long(), minlength=n).to(torch.float64)
+    bound = (1e-5 + 2 * torch.clamp(m - 1, min=0)[:, None, None] * U) \
+        * s_abs + 2 * (plain.to(torch.float64) - want).abs()
+    diff = (got.to(torch.float64) - want).abs()
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+
+
+def _segment64(x, ttail, n):
+    return torch.zeros((n,) + x.shape[1:], dtype=torch.float64,
+                       device=x.device).index_add_(0, ttail.long(), x)
+
+
+DENSE_STATIC_CASES = [
+    # (N, b, d, A, E, hub): umls's served dense call; odd widths; a hub
+    # over hundreds of chunks at the widest width; an empty table; b = 64
+    # (two query groups), A = 64
+    (135, 50, 48, 5, 10_600, False), (40, 7, 13, 3, 700, True),
+    (300, 33, 61, 9, 9_000, True), (64, 32, 8, 1, 0, False),
+    (500, 64, 64, 64, 20_000, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DENSE_STATIC_CASES)
+def test_dense_hop_static_kernel(card, case, dtype):
+    """csrc/dense_hop_static.cu against a float64 referee on its own
+    inputs (`_dense_bound`); new visited set and live count equal to the
+    plain version's; the same bits on a second call; both launches
+    counted."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    n, b, d, a, e, hub = case
+    rng = np.random.default_rng(d)
+    tsrc, ttail, rowptr = _dense_table(rng, n, e, hub, card)
+    r = 20
+    vis = torch.from_numpy(rng.random((n, b)) < 0.5).to(card)
+    g = torch.Generator(device=card).manual_seed(d)
+    rand = lambda *s: torch.randn(*s, generator=g, device=card)  # noqa: E731
+    inp = dict(hidden=(rand(n, b, d) * vis[..., None]).to(dtype),
+               visited=vis, rela=rand(r, d).to(dtype), tsrc=tsrc,
+               trel=torch.from_numpy(rng.integers(0, r, e).astype(
+                   np.int32)).to(card), ttail=ttail, tail_rowptr=rowptr)
+    q_rel = torch.from_numpy(rng.integers(0, r, b)).to(card)
+    ws, wr_w, wq_w = (rand(a, d) * 0.3 for _ in range(3))
+    wr, wq = dh.static_terms(inp["rela"], q_rel, wr_w, wq_w, rand(a))
+    inp.update(wr=wr, wq=wq, ws=ws, w_alpha=rand(a), b_alpha=rand(1))
+    before = dh.dense_hop_static.launches
+    plan = dict(dense_agg="sorted_scatter", item_ptr=dh.tail_items(rowptr))
+    got = dh.dense_hop_static(**inp, **plan)
+    again = dh.dense_hop_static(**inp, **plan)
+    torch.cuda.synchronize()
+    assert dh.dense_hop_static.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    plain = dh.dense_hop_static_plain(**inp)
+    assert torch.equal(got[1], plain[1]) and int(got[2]) == int(plain[2])
+    ref = {k: _f64(v) for k, v in inp.items()}
+    msg, _ = dh.static_messages(*(ref[k] for k in (
+        "hidden", "visited", "rela", "tsrc", "trel", "wr", "wq", "ws",
+        "w_alpha", "b_alpha")))
+    _dense_bound(got[0], _segment64(msg, ttail, n),
+                 _segment64(msg.abs(), ttail, n), ttail, n, plain[0])
+
+
+DENSE_TEMPORAL_CASES = {
+    # name: (N, b, d, A, E, hub, use_time, attention, linear, masks, act)
+    "icews14": (7_128, 32, 20, 30, 152_780, False, True, True, True, False,
+                "idd"),
+    "icews14_hub_loo": (7_128, 32, 20, 30, 152_780, True, True, True, True,
+                        True, "leakyrelu"),
+    "wo_time": (300, 37, 12, 5, 6_000, True, False, True, True, True,
+                "idd"),
+    "wo_attention": (200, 5, 8, 0, 3_000, False, True, False, True, False,
+                     "tanh"),
+    "bias": (200, 40, 30, 30, 9_000, True, True, True, False, True,
+             "sigmoid"),
+    "bias_wo_both": (100, 64, 16, 0, 4_000, True, False, False, False,
+                     False, "softplus"),
+    "relu_w32": (400, 33, 32, 64, 8_000, False, True, True, True, True,
+                 "relu"),
+    # the widths of the interpolation search (hidden_dim 48) and the
+    # widest, whose transforms need 74 KB of shared memory at A = 64
+    "w48": (300, 32, 48, 40, 9_000, True, True, True, True, True,
+            "leakyrelu"),
+    "w48_bias": (300, 20, 48, 40, 9_000, False, True, True, False, False,
+                 "tanh"),
+    "w64": (250, 40, 64, 64, 8_000, True, True, True, True, True, "relu"),
+    "w61_wo_time": (200, 9, 61, 7, 5_000, False, False, True, True, False,
+                    "idd"),
+    "empty": (50, 3, 20, 30, 0, False, True, True, True, False, "idd"),
+}
+
+
+@pytest.mark.parametrize("case", list(DENSE_TEMPORAL_CASES))
+def test_dense_hop_temporal_kernel(card, case):
+    """csrc/dense_hop_temporal.cu against a float64 referee on its own
+    inputs: the sum within `_dense_bound` before the epilogue, which each
+    activation passes on at most 1-Lipschitz (dropout scales it by
+    1 / (1 - p)); new visited set and both counts equal to the plain
+    version's; the same bits on a second call; both launches counted.
+    ``masks``: the leave-one-out, edge-dropout and dropout masks."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    n, b, d, a, e, hub, use_time, attn, linear, masks, act = \
+        DENSE_TEMPORAL_CASES[case]
+    rng = np.random.default_rng(b)
+    tsrc, ttail, rowptr = _dense_table(rng, n, e, hub, card)
+    r, t_ids = 50, 365
+    g = torch.Generator(device=card).manual_seed(b)
+    rand = lambda *s: torch.randn(*s, generator=g, device=card)  # noqa: E731
+    ints = lambda hi, *s: torch.from_numpy(  # noqa: E731
+        rng.integers(0, hi, s).astype(np.int32)).to(card)
+    vis = torch.from_numpy(rng.random((n, b)) < 0.5).to(card)
+    rela, a1 = rand(r, d), rand(3 * d, a) * 0.3
+    times = ints(t_ids, b)
+    ra, qa, tt = dh.temporal_terms(
+        rela, a1, ints(r, b), times, t_ids,
+        rand(48) * 0.01 if use_time else None, rand(96, d) * 0.1,
+        rand(d) * 0.1, use_attention=attn)
+    p = 0.1
+    keep = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.random(s) < 0.9).to(card) if masks else None
+    inp = dict(hidden=rand(n, b, d) * vis[..., None], visited=vis,
+               rela=rela, tsrc=tsrc, trel=ints(r, e), ttime=ints(t_ids, e),
+               ttail=ttail, tail_rowptr=rowptr, times=times,
+               excl_keep=keep(e), edge_keep=keep(e, b), tt=tt, ra=ra, qa=qa,
+               a1s=a1[:d], a2=rand(a, 1) * 0.3,
+               wdir=rand(3, d, d) * 0.3 if linear else None,
+               bdir=None if linear else rand(3, d), drop_keep=keep(n, b, d),
+               dropout=p, act=act)
+    before = dh.dense_hop_temporal.launches
+    plan = dict(dense_agg="sorted_scatter", item_ptr=dh.tail_items(rowptr))
+    got = dh.dense_hop_temporal(**inp, **plan)
+    again = dh.dense_hop_temporal(**inp, **plan)
+    torch.cuda.synchronize()
+    assert dh.dense_hop_temporal.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    plain = dh.dense_hop_temporal_plain(**inp)
+    assert torch.equal(got[1], plain[1])
+    assert (int(got[2]), int(got[3])) == (int(plain[2]), int(plain[3]))
+    ref = {k: _f64(v) for k, v in inp.items()}
+    msg, _ = dh.temporal_messages(*(ref[k] for k in (
+        "hidden", "visited", "rela", "tsrc", "trel", "ttime", "times",
+        "excl_keep", "edge_keep", "tt", "ra", "qa", "a1s", "a2", "wdir",
+        "bdir")))
+    s_abs = _segment64(msg.abs(), ttail, n) / (1 - p if masks else 1)
+    want = dh.dense_hop_temporal_plain(**ref)[0]
+    _dense_bound(got[0], want, s_abs + 4 * U * want.abs(), ttail, n,
+                 plain[0])
+
+
+def test_dense_hop_kernels_refuse_before_launching(card):
+    """A width, dtype or layout the kernels do not take raises ValueError
+    and launches nothing."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    rng = np.random.default_rng(3)
+    tsrc, ttail, rowptr = _dense_table(rng, 30, 200, False, card)
+    vis = torch.ones(30, 4, dtype=torch.bool, device=card)
+    z = lambda *s, **k: torch.zeros(*s, device=card, **k)  # noqa: E731
+    trel = torch.zeros_like(tsrc)
+    plan = dict(dense_agg="sorted_scatter", item_ptr=dh.tail_items(rowptr))
+    static = dict(visited=vis, tsrc=tsrc, trel=trel, ttail=ttail,
+                  tail_rowptr=rowptr, wq=z(4, 5), w_alpha=z(5), b_alpha=z(1),
+                  **plan)
+    before = dh.dense_hop_static.launches, dh.dense_hop_temporal.launches
+    for d, dtype, match in ((65, torch.float32, "width 65"),
+                            (16, torch.float64, "float32 or bfloat16")):
+        with pytest.raises(ValueError, match=match):
+            dh.dense_hop_static(hidden=z(30, 4, d, dtype=dtype),
+                                rela=z(3, d, dtype=dtype), wr=z(3, 5),
+                                ws=z(5, d), **static)
+    with pytest.raises(ValueError, match="contiguous"):
+        dh.dense_hop_static(hidden=z(4, 30, 16).transpose(0, 1),
+                            rela=z(3, 16), wr=z(3, 5), ws=z(5, 16), **static)
+    with pytest.raises(ValueError, match="width 65"):
+        dh.dense_hop_temporal(
+            z(30, 4, 65), vis, z(3, 65), tsrc, trel, trel, ttail, rowptr,
+            z(4, dtype=torch.int32), None, None, None, None, None, None,
+            None, None, z(3, 65), None, 0.0, "relu", **plan)
+    with pytest.raises(ValueError, match="item_ptr"):
+        dh.dense_hop_static(hidden=z(30, 4, 16), rela=z(3, 16), wr=z(3, 5),
+                            ws=z(5, 16), **dict(static, item_ptr=None))
+    assert (dh.dense_hop_static.launches,
+            dh.dense_hop_temporal.launches) == before
+
+
+def _write_temporal(path, rng, n_ent=30, n_rel=3, n_time=20, n=300):
+    """Name-based TSV quadruples (with inverses), split 80/10/10."""
+    rows = []
+    for _ in range(n):
+        h, r, t = rng.integers(0, n_ent, 3)
+        r, tau = r % n_rel, rng.integers(1, n_time)
+        rows += [(f"e{h}", f"r{r}", f"e{t}", f"2014-{tau:02d}"),
+                 (f"e{t}", f"~r{r}", f"e{h}", f"2014-{tau:02d}")]
+    rows = [rows[i] for i in rng.permutation(len(rows))]
+    cut = (int(len(rows) * 0.8), int(len(rows) * 0.9))
+    for name, part in (("train.txt", rows[:cut[0]]),
+                       ("valid.txt", rows[cut[0]:cut[1]]),
+                       ("test.txt", rows[cut[1]:])):
+        (path / name).write_text("".join("\t".join(x) + "\n" for x in part))
+    return str(path)
+
+
+@pytest.mark.parametrize("transform", ["linear", "bias"])
+@pytest.mark.parametrize("hidden_dim", [16, 20, 32, 48, 64])
+def test_temporal_evaluation_at_search_widths(card, tmp_path, hidden_dim,
+                                              transform):
+    """Interpolation evaluation (gradients off) at every hidden width of
+    the interpolation search (`utils/hpo.py:INTERPOLATION_SPACE`, attention
+    width 40) and the widest the kernels take: its dense hops launch the
+    temporal kernel, and the metrics equal the CPU's (the loss within
+    1e-5; a rank metric by at most one query's tie-level swap, 1 / n)."""
+    from redgnn_tpu_torch.graph.temporal import TemporalKG
+    from redgnn_tpu_torch.ops import dense_hop as dh
+    from redgnn_tpu_torch.train.temporal_loop import TemporalTrainer
+    from redgnn_tpu_torch.utils.config import TemporalTrainConfig
+    from redgnn_tpu_torch.utils.hpo import INTERPOLATION_SPACE
+
+    assert hidden_dim in INTERPOLATION_SPACE["hidden_dim"].options \
+        or hidden_dim == dh.MAX_WIDTH
+    d = _write_temporal(tmp_path, np.random.default_rng(hidden_dim))
+    cfg = TemporalTrainConfig(hidden_dim=hidden_dim, attn_dim=40, n_layer=3,
+                              dropout=0.0, batch_size=16, eval_batch_size=16,
+                              dense_switch=0.2, act="leakyrelu",
+                              direction_transform=transform)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tr = TemporalTrainer(TemporalKG.load_vocab_dir(d, device=dev), cfg)
+        before = dh.dense_hop_temporal.launches
+        out[dev] = tr.evaluate("valid")
+        launched = dh.dense_hop_temporal.launches - before
+        assert (launched > 0) == (dev == "cuda"), (dev, launched)
+    c, g = out["cpu"], out["cuda"]
+    assert g["n"] == c["n"] > 0
+    assert g["loss"] == pytest.approx(c["loss"], rel=1e-5)
+    for k in ("mrr", "h1", "h3", "h10"):
+        assert abs(g[k] - c[k]) <= 1.0 / c["n"] + 1e-9, (k, g[k], c[k])
+
+
+def test_model_dense_hops_launch_the_kernels(card):
+    """With gradients off every dense hop of RedGNN.forward launches the
+    static kernel (float32 and bf16) and the scores match the CPU's plain
+    route; with gradients on none does (the autograd route)."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    rng = np.random.default_rng(5)
+    n_ent, n_rel, b = 30, 4, 4
+    tri = np.stack([rng.integers(0, n_ent, 200),
+                    rng.integers(0, 2 * n_rel, 200),
+                    rng.integers(0, n_ent, 200)], 1)
+    csr = build_csr(tri, n_ent)
+    caps = FrontierCaps((b, 256, 256, 256), (64, 1024, 1024))
+    subs = torch.from_numpy(rng.integers(0, n_ent, b).astype(np.int32))
+    rels = torch.from_numpy(rng.integers(0, 2 * n_rel, b).astype(np.int32))
+    qmask = torch.tensor([True, True, True, False])
+    for dtype in ("float32", "bfloat16"):
+        cfg = ModelConfig(n_ent=n_ent, n_rel=n_rel, hidden_dim=16,
+                          attn_dim=5, n_layer=3, dense_hops=True,
+                          dense_switch=0.3, dedup_impl="auto",
+                          compute_dtype=dtype)
+        scores = {}
+        for dev in ("cpu", card):
+            model = RedGNN(cfg, device=dev)
+            g = DeviceGraph.from_csr(*csr, n_ent, device=dev)
+            args = (g, subs.to(dev), rels.to(dev), qmask.to(dev), caps)
+            before = dh.dense_hop_static.launches
+            with torch.no_grad():
+                scores[str(dev)], _ = model(*args)
+            launched = dh.dense_hop_static.launches - before
+            assert launched == (2 if str(dev) == "cuda" else 0), launched
+        model(*args)[0].sum().backward()
+        assert dh.dense_hop_static.launches - before == 2
+        tol = 1e-5 if dtype == "float32" else 1e-3
+        torch.testing.assert_close(
+            scores["cuda"].cpu(), scores["cpu"], rtol=0,
+            atol=tol * float(scores["cpu"].abs().max()))

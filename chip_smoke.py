@@ -123,9 +123,11 @@ Phases (any failure raises, and the script exits non-zero):
      flushed beside the bound (bytes or float32 work of the kept pairs),
      the plain version, the whole fused hop and the old (autograd) route;
      their launches counted: one a dense hop of every served batch (6a,
-     6b, 7a, 7b, 10b in bf16 and float32) and of 7a's evaluation. 6b and
-     7b record their segment-kernel rows at the served dense calls
-     through the autograd route (a served batch no longer sums there).
+     6b, 7a, 7b, 10b in bf16 and float32) and of 7a's evaluation; the
+     temporal kernel at widths 48 and 64 on 7a's last dense call, held
+     to the same float64 bound and timed. 6b and 7b record their
+     segment-kernel rows at the served dense calls through the autograd
+     route (a served batch no longer sums there).
      ``--phase 7i [--tree DIR]`` times 7a's and umls's served batches and
      evaluations with their peak memory through DIR's own functions, and
      runs the kernel checks where DIR has them.
@@ -2650,59 +2652,67 @@ def dense_hop_calls(run):
 
 
 def dense_hop_work(kind, args, kept: int):
-    """(bytes, float32 FLOPs) the hop must spend: every input read once and
-    every output written once, and the arithmetic per kept (edge, query)
-    that no hoisting removes (the hidden-state projections and the
-    message's own terms; ``kept`` from this run's counts)."""
+    """(bytes, float32 FLOPs, the FLOPs under PR 13's count) the hop must
+    spend: every input read once and every output written once, and the
+    arithmetic that no hoisting removes (``kept`` from this run's counts).
+    Per kept (edge, query): the hidden-state projections and the message's
+    own terms. The temporal direction transform is linear and comes before
+    the sum, so it is counted once per (tail, query, direction with a kept
+    edge) (2d^2, or 2d for the bias form's sum of attention weights times
+    B[dir]); PR 13's count took it per kept pair (2d^2, or d)."""
     if kind == "static":
         hidden, vis, rela, tsrc, trel, _, rowptr, wr, wq, ws = args[:10]
         n, b, d = hidden.shape
         a = ws.shape[0]
-        flops = 2 * d * a + 4 * a + 3 * d + 4
+        flops = kept * (2 * d * a + 4 * a + 3 * d + 4)
+        flops_pr13 = flops
     else:
-        (hidden, vis, rela, tsrc, trel, ttime, _, rowptr, times, excl,
+        (hidden, vis, rela, tsrc, trel, ttime, ttail, rowptr, times, excl,
          ekeep, tt, ra, qa, a1s, a2, wdir, bdir, drop) = args[:19]
         n, b, d = hidden.shape
         a = 0 if ra is None else ra.shape[1]
-        flops = ((2 * d * a + 4 * a + 4 if ra is not None else 0)
-                 + (2 * d * d if wdir is not None else d)
-                 + (d if tt is not None else 0) + d
-                 + (2 * d if ra is not None else d))
+        pair = ((2 * d * a + 4 * a + 4 if ra is not None else 0)
+                + (d if tt is not None else 0) + d
+                + (2 * d if ra is not None else d))
+        flops_pr13 = kept * (pair + (2 * d * d if wdir is not None else d))
+        keep = vis[tsrc.long()]
+        if excl is not None:
+            keep = keep & excl[:, None]
+        if ekeep is not None:
+            keep = keep & ekeep
+        direction = torch.sign(ttime[:, None] - times[None, :]) + 1
+        key = ((ttail.long()[:, None] * b
+                + torch.arange(b, device=keep.device)) * 3 + direction)
+        triples = int(torch.unique(key[keep]).numel())
+        del keep, direction, key
+        flops = kept * pair + triples * (2 * d * d if wdir is not None
+                                         else 2 * d)
     moved = sum(t.numel() * t.element_size() for t in args
                 if torch.is_tensor(t) and t is not args[5])  # ttail unread
     moved += n * b * d * 4 + n * b  # outputs
-    return moved, kept * flops
+    return moved, flops, flops_pr13
 
 
-def dense_hop_call_check(kind, hop, args, graph, what: str, card):
-    """The kernel at one dense hop's real inputs: against its plain version
-    (new visited set and counts equal; max |diff| printed), against a
-    float64 referee on the same inputs within (1e-5 + 2 (m - 1) u) sum|x|
-    per output plus twice the plain version's own error
-    (tests/test_torch_cuda.py's bound: the terms' float32 rounding, a
-    float32 sum of the tail's m edges in any order, and the cancellation
-    inside a term that the plain float32 shares), the
-    same bits on a second call; device times with L2 warm (as in the path,
-    where the state was written just before) and flushed, the plain
-    version's; host-clock times of the whole fused hop (terms, kernel,
-    W_h or the epilogue) and of the old route (the autograd route's
-    tensor ops with gradients off; no single PyTorch call computes the
-    hop); the bound, the larger of the bytes the hop must move and the
-    float32 work per kept pair. Returns the row."""
+def dense_hop_plan(args):
+    """The work plan of the kernel at one call: (its chunk, EDGE_CHUNK;
+    its items; warps launched a multiprocessor)."""
     from redgnn_tpu_torch.ops import dense_hop as dh
 
-    kernel = getattr(dh, f"dense_hop_{kind}")
-    plain = getattr(dh, f"dense_hop_{kind}_plain")
-    plain_args = args[:-1]  # the plain versions take no work plan
-    got, again = kernel(*args), kernel(*args)
-    want = plain(*plain_args)
-    torch.cuda.synchronize()
-    assert all(torch.equal(x, y) for x, y in zip(got, again)), \
-        "two calls gave different bits"
-    assert torch.equal(got[1], want[1]), "new visited sets differ"
-    counts = [int(c) for c in got[2:]]
-    assert counts == [int(c) for c in want[2:]], (counts, want[2:])
-    err = float((got[0] - want[0]).abs().max())
+    b = args[1].shape[1]
+    items = int(args[-1][-1])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return dh.EDGE_CHUNK, items, items * -(-b // 32) / n_sm
+
+
+def float64_check(kind, args, got, want):
+    """The kernel's output ``got[0]`` against a float64 referee on the
+    same inputs, within (1e-5 + 2 (m - 1) u) sum|x| per output plus twice
+    the plain version's (``want[0]``) own error (tests/test_torch_cuda.py's
+    bound: the terms' float32 rounding, a float32 sum of the tail's m
+    edges in any order, and the cancellation inside a term that the plain
+    float32 shares). Returns the largest shares of the bound, of its sum
+    term alone, and of the sum term that the plain version reaches."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
 
     def f64(x):
         return (x.double() if torch.is_tensor(x)
@@ -2741,9 +2751,89 @@ def dense_hop_call_check(kind, hop, args, graph, what: str, card):
     # error, that the kernel and the plain float32 version reach: above 1
     # where a term's own cancellation carries the check
     sum_bound = torch.clamp(sum_bound, min=1e-300)
-    ratio_sum = float((diff / sum_bound).max())
-    ratio_plain = float((plain_err / sum_bound).max())
-    del want64, s_abs, sum_bound, plain_err, bound, diff
+    return (ratio, float((diff / sum_bound).max()),
+            float((plain_err / sum_bound).max()))
+
+
+def dense_hop_widths(args, tag: str, card):
+    """The temporal kernel at hidden widths 48 and 64 (its run-time-flag
+    instances, whose transform stays per edge) on one served dense call's
+    table, visited set, time ids and masks, with seeded random state and
+    weights (attention width 30, the call's transform form): visited set
+    and counts equal to the plain version's, the output within the float64
+    bound of `float64_check`, max |diff| to the plain version (which sums
+    with index_add_'s float atomics, so it moves from run to run while the
+    kernel's bits do not), and the kernel's device time with L2 warm.
+    Returns {width: ms}."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    args = list(args)
+    hidden, visited, rela, tt, wdir = args[0], args[1], args[2], args[11], \
+        args[16]
+    n, b, _ = hidden.shape
+    r, a = rela.shape[0], 30
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for d in (48, 64):
+        def rand(*s, scale=1.0):
+            return torch.randn(*s, generator=gen, device="cuda") * scale
+
+        run = list(args)
+        run[0] = rand(n, b, d) * visited[..., None]
+        run[2] = rand(r, d)
+        run[11] = None if tt is None else rand(tt.shape[0], b, d, scale=0.1)
+        run[12:16] = [rand(r, a, scale=0.3), rand(b, a, scale=0.3),
+                      rand(d, a, scale=0.3), rand(a, 1, scale=0.3)]
+        run[16] = rand(3, d, d, scale=0.3) if wdir is not None else None
+        run[17] = None if wdir is not None else rand(3, d)
+        run[18] = None  # no dropout mask
+        got = dh.dense_hop_temporal(*run)
+        want = dh.dense_hop_temporal_plain(*run[:-1])
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]), d
+        assert [int(x) for x in got[2:]] == [int(x) for x in want[2:]], d
+        err = float((got[0] - want[0]).abs().max())
+        scale = float(want[0].abs().max())
+        ratio = float64_check("temporal", run, got, want)[0]
+        del want
+        out[d] = device_ms(lambda: dh.dense_hop_temporal(*run))
+        log(f"{tag} 7i temporal kernel at width {d} (A={a}, the run-time "
+            f"flags, the transform per edge) on the call's table: "
+            f"{int(got[3])} kept pairs; visited and counts equal to the "
+            f"plain version's, max |diff| {err:.3g} (largest |value| "
+            f"{scale:.3g}), at most {ratio:.3g} of the float64 bound; "
+            f"kernel {out[d]:.4f} ms with L2 warm ({card})")
+        del got, run
+    return out
+
+
+def dense_hop_call_check(kind, hop, args, graph, what: str, card):
+    """The kernel at one dense hop's real inputs: against its plain version
+    (new visited set and counts equal; max |diff| printed), against a
+    float64 referee within `float64_check`'s bound, the same bits on a
+    second call; device times with L2 warm (as in the path,
+    where the state was written just before) and flushed, the plain
+    version's; host-clock times of the whole fused hop (terms, kernel,
+    W_h or the epilogue) and of the old route (the autograd route's
+    tensor ops with gradients off; no single PyTorch call computes the
+    hop); the bound, the larger of the bytes the hop must move and the
+    float32 work per kept pair. Returns the row."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    kernel = getattr(dh, f"dense_hop_{kind}")
+    plain = getattr(dh, f"dense_hop_{kind}_plain")
+    plain_args = args[:-1]  # the plain versions take no work plan
+    got, again = kernel(*args), kernel(*args)
+    want = plain(*plain_args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+        "two calls gave different bits"
+    assert torch.equal(got[1], want[1]), "new visited sets differ"
+    counts = [int(c) for c in got[2:]]
+    assert counts == [int(c) for c in want[2:]], (counts, want[2:])
+    err = float((got[0] - want[0]).abs().max())
+    ratio, ratio_sum, ratio_plain = float64_check(kind, args, got, want)
+    hidden = args[0]
 
     t_k = device_ms(lambda: kernel(*args))
     t_f = flushed_ms(lambda: kernel(*args))
@@ -2761,11 +2851,21 @@ def dense_hop_call_check(kind, hop, args, graph, what: str, card):
                 *hop_args[11:14])
         t_hop = call_ms(fused, rounds=3, iters=10)[0]
         t_old = call_ms(old, rounds=3, iters=5, warmup=2)[0]
-    moved, flops = dense_hop_work(kind, args, counts[-1])
+    moved, flops, flops_pr13 = dense_hop_work(kind, args, counts[-1])
     b_bytes = moved / HBM_BYTES_PER_S * 1e3
     b_ops = flops / FP32_FLOPS_PER_S * 1e3
     b_ms, by = max((b_bytes, "bytes"), (b_ops, "operations"))
+    b_pr13 = max(b_bytes, flops_pr13 / FP32_FLOPS_PER_S * 1e3)
+    chunk, items, warps = dense_hop_plan(args)
     n_, b_, d_ = hidden.shape
+    e_ = int(args[3].shape[0])
+    log(f"{what} {kind} dense call plan: chunk {chunk}, {items} items x "
+        f"{-(-b_ // 32)} query groups = "
+        f"{warps:.1f} warps launched a multiprocessor; "
+        f"{counts[-1] / max(1, e_ * b_):.1%} of the (edge, query) pairs "
+        f"kept; bound {b_ms * 1e3:.2f} us ({b_ms / t_k:.1%} "
+        f"reached), under PR 13's count {b_pr13 * 1e3:.2f} us "
+        f"({b_pr13 / t_k:.1%}) ({card})")
     log(f"{what} {kind} dense call N={n_} b={b_} d={d_} "
         f"{str(hidden.dtype)[6:]} E={args[3].shape[0]}: {counts[-1]} kept "
         f"(edge, query) pairs; kernel == plain (visited, counts {counts}), "
@@ -2785,7 +2885,9 @@ def dense_hop_call_check(kind, hop, args, graph, what: str, card):
             "plain_sum_bound_share": ratio_plain, "ms": t_k,
             "ms_l2_flushed": t_f, "plain_ms": t_p, "hop_ms": t_hop,
             "old_route_ms": t_old, "bound_ms": b_ms, "bound_by": by,
-            "bytes": moved, "flops": flops}
+            "bound_ms_pr13": b_pr13, "bytes": moved, "flops": flops,
+            "chunk": chunk, "items": items, "warps_per_sm": warps,
+            "kept_share": counts[-1] / max(1, e_ * b_)}
 
 
 def dense_hop_check(pred, q0, tag: str, card):
@@ -2798,6 +2900,8 @@ def dense_hop_check(pred, q0, tag: str, card):
         rows = [dense_hop_call_check(kind, hop, args, pred.graph,
                                      f"{tag} 7i serving", card)
                 for kind, hop, args in calls]
+        if calls[-1][0] == "temporal":
+            rows[-1]["widths_ms"] = dense_hop_widths(calls[-1][2], tag, card)
     del calls
     return rows
 
@@ -2815,6 +2919,18 @@ def reset_dense_hop_launches():
 
 
 DENSE_ALONE_STEPS = 4  # train steps of the trainers --phase 7i builds
+
+
+def dense_rows_summary(rows) -> dict:
+    """Phase 7i's numbers of a cell's dense calls, by call, for its JSON
+    line (keys a row of an older tree lacks are left out)."""
+    keys = ("ms", "ms_l2_flushed", "old_route_ms", "bound_ms",
+            "bound_ms_pr13", "chunk", "items", "warps_per_sm", "kept_share")
+    out = {f"kernel_{k}" if k in ("ms", "ms_l2_flushed") else k:
+           [r[k] for r in rows] for k in keys if k in rows[0]}
+    if "widths_ms" in rows[-1]:
+        out["widths_ms"] = rows[-1]["widths_ms"]
+    return out
 
 
 def phase_dense_alone(mod, card):
@@ -2870,9 +2986,7 @@ def phase_dense_alone(mod, card):
         if hasattr(mod, "dense_hop_check"):
             rows = mod.dense_hop_check(pred, queries[:pred.batch], "[7a]",
                                        card)
-            out["ICEWS14_TeMP"]["kernel_ms"] = [r["ms"] for r in rows]
-            out["ICEWS14_TeMP"]["old_route_ms"] = [r["old_route_ms"]
-                                                   for r in rows]
+            out["ICEWS14_TeMP"].update(dense_rows_summary(rows))
         del trainer, pred
     with tempfile.TemporaryDirectory() as tmp:
         mod.write_umls_sized_kg(tmp)
@@ -2894,8 +3008,7 @@ def phase_dense_alone(mod, card):
         if hasattr(mod, "dense_hop_check"):
             rows = mod.dense_hop_check(pred, queries[:pred.batch], "[umls]",
                                        card)
-            out["umls"]["kernel_ms"] = [r["ms"] for r in rows]
-            out["umls"]["old_route_ms"] = [r["old_route_ms"] for r in rows]
+            out["umls"].update(dense_rows_summary(rows))
     return out
 
 

@@ -26,21 +26,41 @@
 // widths up to 32, run-time ones above (`kRuntime`).
 //
 // What bounds it: at ICEWS14 size (E = 152,780, N = 7,128, b = 32, d = 20,
-// A = 30) the work left per (edge, query) is d * A + d * d + A FMAs
-// (~1,030): 10 GFLOP a hop, 0.15 ms at the card's 67 TFLOP/s fp32 peak;
-// the bytes it must move (state, indices, result) are ~39 MB, 12 µs. So
-// fp32 FMA throughput bounds it: the design keeps every operand of an FMA
-// in a register or a broadcast shared-memory float4.
+// A = 30) the work left per kept (edge, query) is d * A + d * d + A FMAs
+// (~1,030): ~10 GFLOP at a saturated hop, 0.15 ms at the card's
+// 67 TFLOP/s fp32 peak; the bytes it must move (state, indices, result)
+// are ~40 MB, 12 µs. A lane's step reads its FMAs' weights as broadcast
+// float4s of shared memory, one per 4 FMAs (250 a step at d = 20), and
+// the warps' steps are long chains of dependent FMAs: at ICEWS14's three
+// served dense calls (25%, 84% and 100% of the pairs kept) the kernel
+// reaches 7.4%, 20.4% and 24.8% of that per-pair fp32 bound (5.0%, 13.4%
+// and 16.2% of the bound that counts the transform once per tail, query
+// and direction), held by those loads and chains, not by bytes
+// (chip_smoke.py phase 7i, H100 80GB HBM3 at 700 W).
 //
-// Design: lane = query; the edge's indices, its relation row and its RA
-// row are the same for the warp (broadcast loads); A1_s [d][A], the three
-// d x d transforms (each padded by 4 floats, so lanes of different
-// directions read other banks) and a2 sit in shared memory, QA lane-major.
-// A lane reads its own hs and TT rows (16-byte loads where d % 4 == 0)
-// and keeps them, the message and the sum in registers, the width padded
-// to 8, 16, 20, 24, 32, 48 or 64 (the transform is taken four output
-// columns at a time, so no third DP-wide array is live). Edges whose
-// source no lane has visited are skipped as a warp.
+// Design (PR 14): the walk of dense_hop.cuh (the chunk's indices, time
+// ids and masks loaded before any row; each lane walks its own kept
+// edges, so a sparse hop costs its kept pairs and not every edge some
+// lane keeps), chunks of 16 edges (shorter hub chains than 32), 4 warps
+// a block; RA and the relation table staged in shared
+// memory; a step's state and time-term rows loaded together before the
+// attention. A1_s sits in shared memory column by column ([A][d]: A
+// columns), the three d x d transforms (each padded by 4 floats, so
+// lanes of different directions read other banks) and a2 beside it, QA
+// lane-major. A lane keeps hs, the time term, the message and the sum in
+// registers, the width padded to 8, 16, 20, 24, 32, 48 or 64 (the
+// transform is taken four output columns at a time, so no third DP-wide
+// array is live).
+//
+// The transform stays per (edge, query). Summing each direction's
+// messages first and transforming the three sums once a tail is the same
+// function (the transform is linear and precedes the sum), but its
+// float32 rounding is not that of the float64 check the kernel is held
+// to: the check's sum|x| term counts the per-edge transformed terms, and
+// a transform's cancellation is covered only where the plain version
+// rounds it as the kernel does. Measured (PR 14, NVIDIA H100 80GB HBM3,
+// tests/test_torch_cuda.py): with the direction sums, 7 of 18 temporal
+// cases ended up to 4.7e-7 past that bound.
 
 #include "dense_hop.cuh"
 
@@ -80,9 +100,10 @@ struct Temporal {
   float drop_div;               // 1 - dropout rate
   float* out;                   // (n_tail, b, d)
   unsigned char* new_visited;   // (n_tail, b)
-  int act, A, Ap;
+  int act, A, R;
   int flags;                    // kTime | kAttn | kLinear
-  bool vec_h, vec_t;
+  bool vec_h, vec_t, vec_r;
+  bool tables;                  // RA and rela staged in shared memory
 };
 
 // The ablation switches: use_time, use_attention, direction_transform
@@ -92,6 +113,22 @@ struct Temporal {
 // branches.
 constexpr int kLinear = 1, kAttn = 2, kTime = 4, kRuntime = -1;
 
+// The block's shared memory: the transforms (or biases), A1_s [A][DP], QA
+// [A][32] and a2 [A], rounded up to a float4; then, where they fit, RA
+// [R][A] (with attention) and the relation rows [R][d].
+__host__ __device__ inline size_t weight_floats(int dp, bool linear,
+                                                bool attn, int A) {
+  return ((linear ? 3 * (dp * dp + 4) : 3 * dp) +
+          (attn ? (size_t)A * (dp + 33) : 0) + 3) / 4 * 4;
+}
+
+__host__ __device__ inline size_t table_floats(int R, int A, int d,
+                                               bool attn) {
+  return (attn ? ((size_t)R * A + 3) / 4 * 4 : 0) + (size_t)R * d;
+}
+
+// No cap below 255 registers a thread: a spill costs more than the warps
+// a cap would add (128 registers spilled at d = 24 and 32).
 template <int DP, int FLAGS>
 __global__ void __launch_bounds__(kThreads)
 temporal_hop(Walk p, Temporal t) {
@@ -99,18 +136,19 @@ temporal_hop(Walk p, Temporal t) {
   constexpr int kMat = DP * DP + 4;  // one transform, padded
   const int f = FLAGS == kRuntime ? t.flags : FLAGS;
   const bool use_time = f & kTime, attn = f & kAttn, linear = f & kLinear;
-  const int Ap = t.Ap;
-  float* s_a1 = sm;                  // [DP][Ap]
-  float* s_qa = s_a1 + DP * Ap;      // [Ap][32]
-  float* s_a2 = s_qa + Ap * 32;      // [Ap]
-  float* s_w = s_a2 + Ap;            // [3][kMat] or [3][DP]
+  const int A = t.A;
+  float* s_w = sm;                                   // [3][kMat] or [3][DP]
+  float* s_a1 = s_w + (linear ? 3 * kMat : 3 * DP);  // [A][DP]
+  float* s_qa = s_a1 + A * DP;                       // [A][32]
+  float* s_a2 = s_qa + A * 32;                       // [A]
   const int g = blockIdx.y;
   if (attn) {
-    stage_proj(s_a1, t.a1s, t.A, 1, DP, p.d, t.A, Ap);
-    stage_query(s_qa, t.qa, p.b, t.A, Ap, g);
-    stage_vec(s_a2, t.a2, t.A, Ap);
+    stage_proj(s_a1, t.a1s, A, 1, DP, p.d, A);
+    stage_query(s_qa, t.qa, p.b, A, g);
+    stage_vec(s_a2, t.a2, A);
   }
   if (linear) {
+#pragma unroll 4
     for (int k = threadIdx.x; k < 3 * kMat; k += blockDim.x) {
       const int m = k / kMat, r = k - m * kMat, i = r / DP, j = r - i * DP;
       s_w[k] = (i < p.d && j < p.d)
@@ -122,68 +160,94 @@ temporal_hop(Walk p, Temporal t) {
       s_w[k] = j < p.d ? t.bdir[m * p.d + j] : 0.f;
     }
   }
+  const float* t_ra = t.ra;  // the relation tables: shared or global
+  const float* t_rela = t.rela;
+  if (t.tables) {
+    float* s_tab = sm + weight_floats(DP, linear, attn, A);
+    if (attn) {
+      stage_table(s_tab, t.ra, t.R * A);
+      t_ra = s_tab;
+      s_tab += ((size_t)t.R * A + 3) / 4 * 4;
+    }
+    stage_table(s_tab, t.rela, t.R * p.d);
+    t_rela = s_tab;
+  }
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  Item it;
-  if (!item_of(p, w, it)) return;
   const int q = g * 32 + lane;
   const bool active = q < p.b;
   const int tq = active ? __ldg(t.times + q) : 0;
+  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  Item it;
+  if (!item_of(p, w, it)) return;
+  // lane k: edge e0 + k's relation and time id, and whether the
+  // leave-one-out mask keeps it
+  const int ne = it.e1 - it.e0;
+  int rel_k = 0, te_k = 0;
+  bool ok = lane < ne;
+  if (ok) {
+    rel_k = __ldg(t.trel + it.e0 + lane);
+    te_k = __ldg(t.ttime + it.e0 + lane);
+    if (t.excl) ok = t.excl[it.e0 + lane];
+  }
+  Chunk c = stage_chunk(p, it, q, active, __ballot_sync(kFull, ok),
+                        t.ekeep);
+  int kept = __popc(c.mine);
+  const int steps = __reduce_max_sync(kFull, kept);
   float acc[DP];
 #pragma unroll
   for (int i = 0; i < DP; ++i) acc[i] = 0.f;
-  int kept = 0;
-  for (int e = it.e0; e < it.e1; ++e) {
-    const int src = __ldg(p.tsrc + e);
-    bool keep = active && p.visited[(size_t)src * p.b + q];
-    if (t.excl) keep = keep && t.excl[e];
-    if (t.ekeep) keep = keep && t.ekeep[(size_t)e * p.b + q];
-    if (!__any_sync(kFull, keep)) continue;
-    if (!keep) continue;
-    float x[DP];  // hs, then the message
-    load_row<DP>(t.hidden + ((size_t)src * p.b + q) * p.d, p.d, t.vec_h, x);
-    const int rel = __ldg(t.trel + e);
-    const int te = __ldg(t.ttime + e);
+  for (int s = 0; s < steps; ++s) {
+    const int j = next_edge(c.mine);
+    const int src = __shfl_sync(kFull, c.src, j & 31);
+    const int rel = __shfl_sync(kFull, rel_k, j & 31);
+    const int te = __shfl_sync(kFull, te_k, j & 31);
+    if (j < 0) continue;
+    // both rows' loads at once, before the attention
+    float x[DP], tr[DP];  // hs, then the message; the time term
+    load_row<DP>(t.hidden + ((size_t)src * p.b + q) * p.d, p.d, t.vec_h,
+                 x);
+    if (use_time)
+      load_row<DP>(t.tt + ((size_t)te * p.b + q) * p.d, p.d, t.vec_t, tr);
     float alpha = 1.f;
     if (attn)
-      alpha = sigmoid(attn_logit<DP>(x, s_a1, t.ra + (size_t)rel * t.A, s_qa,
-                                     s_a2, t.A, Ap, lane, 0.f));
-    const float* hr = t.rela + (size_t)rel * p.d;
+      alpha = sigmoid(attn_logit<DP>(x, s_a1, t_ra + (size_t)rel * A, s_qa,
+                                     s_a2, A, lane, 0.f));
+    add_table_row<DP>(t_rela + (size_t)rel * p.d, p.d, t.vec_r, x);
+    if (use_time) {
 #pragma unroll
-    for (int i = 0; i < DP; ++i)
-      if (i < p.d) x[i] += __ldg(hr + i);
-    if (use_time)
-      add_row<DP>(t.tt + ((size_t)te * p.b + q) * p.d, p.d, t.vec_t, x);
+      for (int i = 0; i < DP; ++i) x[i] += tr[i];
+    }
     const int dir = te < tq ? 0 : (te == tq ? 1 : 2);
     if (linear) {
-      // y[j] = sum_i x[i] W[i][j] in order of i, four columns at a time
+      // y[j] = sum_i x[i] W[dir][i][j] in order of i, four columns at a
+      // time, scaled and added to the sum
       const float* W = s_w + dir * kMat;
 #pragma unroll
-      for (int j = 0; j < DP; j += 4) {
+      for (int jc = 0; jc < DP; jc += 4) {
         float y0 = 0.f, y1 = 0.f, y2 = 0.f, y3 = 0.f;
 #pragma unroll
         for (int i = 0; i < DP; ++i) {
-          const float4 wv = *reinterpret_cast<const float4*>(W + i * DP + j);
+          const float4 wv =
+              *reinterpret_cast<const float4*>(W + i * DP + jc);
           y0 = fmaf(x[i], wv.x, y0);
           y1 = fmaf(x[i], wv.y, y1);
           y2 = fmaf(x[i], wv.z, y2);
           y3 = fmaf(x[i], wv.w, y3);
         }
-        acc[j] += attn ? y0 * alpha : y0;
-        acc[j + 1] += attn ? y1 * alpha : y1;
-        acc[j + 2] += attn ? y2 * alpha : y2;
-        acc[j + 3] += attn ? y3 * alpha : y3;
+        acc[jc] += attn ? y0 * alpha : y0;
+        acc[jc + 1] += attn ? y1 * alpha : y1;
+        acc[jc + 2] += attn ? y2 * alpha : y2;
+        acc[jc + 3] += attn ? y3 * alpha : y3;
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < DP; ++j) {
-        const float y = x[j] + s_w[dir * DP + j];
-        acc[j] += attn ? y * alpha : y;
+      for (int jc = 0; jc < DP; ++jc) {
+        const float y = x[jc] + s_w[dir * DP + jc];
+        acc[jc] += attn ? y * alpha : y;
       }
     }
-    ++kept;
   }
   if (!close_item<DP>(p, it, w, q, active, acc, kept) || !active) return;
   const size_t row = (size_t)it.v * p.b + q;
@@ -201,20 +265,21 @@ temporal_hop(Walk p, Temporal t) {
 }
 
 template <int DP, int FLAGS>
-int launch(const Walk& p, const Temporal& t, long long items,
-           cudaStream_t stream) {
-  const bool linear = (FLAGS == kRuntime ? t.flags : FLAGS) & kLinear;
-  const size_t mats = linear ? 3 * (DP * DP + 4) : 3 * DP;
-  const size_t smem =
-      sizeof(float) * ((size_t)DP * t.Ap + t.Ap * 32 + t.Ap + mats);
-  const dim3 grid((unsigned)((items + kWarps - 1) / kWarps),
-                  (unsigned)((p.b + 31) / 32));
-  if (smem > 48 * 1024) {  // the widest transforms (74 KB at d = 64, A = 64)
+int launch(const Walk& p, Temporal t, long long items, cudaStream_t stream) {
+  const int f = FLAGS == kRuntime ? t.flags : FLAGS;
+  const size_t base =
+      sizeof(float) * weight_floats(DP, f & kLinear, f & kAttn, t.A);
+  const size_t tab = sizeof(float) * table_floats(t.R, t.A, p.d, f & kAttn);
+  t.tables = tab <= kTableBytes;
+  const size_t smem = base + (t.tables ? tab : 0);
+  if (smem > 48 * 1024) {  // the tables; the widest transforms (74 KB)
     const cudaError_t err = cudaFuncSetAttribute(
         temporal_hop<DP, FLAGS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
+  const dim3 grid((unsigned)((items + kWarps - 1) / kWarps),
+                  (unsigned)((p.b + 31) / 32));
   temporal_hop<DP, FLAGS><<<grid, kThreads, smem, stream>>>(p, t);
   return (int)cudaGetLastError();
 }
@@ -244,8 +309,8 @@ int by_flags(const Walk& p, const Temporal& t, long long items,
 // past / now / future; drop (n_tail, b, d) bool or null, drop_div the
 // kept scale's divisor; act 0-5 (relu, tanh, sigmoid, idd, softplus,
 // leakyrelu). Writes out (n_tail, b, d) float32 and new_visited (n_tail,
-// b) bool; partial, partial_kept and arrive_counts as dense_hop_static's.
-// d <= 64. Returns a cudaError_t.
+// b) bool; partial, partial_kept and arrive_counts as dense_hop_static's;
+// n_rel is R. d <= 64. Returns a cudaError_t.
 extern "C" int dense_hop_temporal(
     const void* hidden, const void* visited, const void* rela,
     const void* tsrc, const void* trel, const void* ttime,
@@ -255,10 +320,13 @@ extern "C" int dense_hop_temporal(
     const void* bdir, const void* drop, float drop_div, int act, void* out,
     void* new_visited, void* partial, void* partial_kept, void* arrive_counts,
     long long n_tail, long long b, long long d, long long a, long long chunk,
-    long long items, int use_time, int use_attn, int linear, void* stream) {
+    long long items, long long n_rel, int use_time, int use_attn, int linear,
+    void* stream) {
   const int dp = dense_hop::padded_width(d);
   if (n_tail <= 0 || b <= 0 || d <= 0 || dp == 0 || a < 0 ||
-      a > 64 || (use_attn && a == 0) || chunk <= 0 || items < n_tail ||
+      n_rel <= 0 || n_rel > 0x7fffffffLL / 64 ||
+      a > 64 || (use_attn && a == 0) || chunk <= 0 ||
+      chunk > dense_hop::kMaxChunk || items < n_tail ||
       items > 0x7fffffffLL || (b + 31) / 32 > 65535 ||
       n_tail * b > 0x7fffffffLL || act < 0 || act > 5 ||
       (use_time && !tt) || (linear ? !wdir : !bdir)) {
@@ -298,9 +366,10 @@ extern "C" int dense_hop_temporal(
   t.new_visited = (unsigned char*)new_visited;
   t.act = act;
   t.A = (int)a;
-  t.Ap = use_attn ? ((int)a + 7) / 8 * 8 : 0;
+  t.R = (int)n_rel;
   t.vec_h = d % 4 == 0 && (uintptr_t)hidden % 16 == 0;
   t.vec_t = d % 4 == 0 && (uintptr_t)tt % 16 == 0;
+  t.vec_r = d % 4 == 0 && (uintptr_t)rela % 16 == 0;
   t.flags = (use_time ? kTime : 0) | (use_attn ? kAttn : 0) |
             (linear ? kLinear : 0);
   const cudaStream_t s = (cudaStream_t)stream;

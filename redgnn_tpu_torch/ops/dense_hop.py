@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from redgnn_tpu_torch import _build
 from redgnn_tpu_torch.ops.segment import segment_sum
 
-EDGE_CHUNK = 32       # edges of a tail a warp sums before the tail splits
+EDGE_CHUNK = 16       # edges of a tail a warp sums before the tail splits
 MAX_ATTN = 64         # attention width both kernels take
 MAX_WIDTH = 64        # hidden width both kernels take
 
@@ -68,14 +68,13 @@ def grad_free(*tensors: torch.Tensor) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def tail_items(tail_rowptr: torch.Tensor,
-               chunk: int = EDGE_CHUNK) -> torch.Tensor:
+def tail_items(tail_rowptr: torch.Tensor) -> torch.Tensor:
     """The kernels' work items: tail v's edges cut into
-    ``max(1, ceil(deg / chunk))`` chunks; returns (N + 1,) int32, the first
-    item of each tail (the last entry is the count). A pure function of
-    the graph: `graph.kg.DeviceGraph` keeps it as ``tail_items``."""
+    ``max(1, ceil(deg / EDGE_CHUNK))`` chunks; returns (N + 1,) int32, the
+    first item of each tail (the last entry is the count). A pure function
+    of the graph: `graph.kg.DeviceGraph` keeps it as ``tail_items``."""
     deg = (tail_rowptr[1:] - tail_rowptr[:-1]).long()
-    n = torch.clamp((deg + chunk - 1) // chunk, min=1)
+    n = torch.clamp((deg + EDGE_CHUNK - 1) // EDGE_CHUNK, min=1)
     return torch.cat([n.new_zeros(1), torch.cumsum(n, 0)]).to(torch.int32)
 
 
@@ -266,7 +265,7 @@ def dense_hop_static(hidden, visited, rela, tsrc, trel, ttail, tail_rowptr,
         n, b, d, tsrc.shape[0], dev)
     p, i64 = ctypes.c_void_p, ctypes.c_longlong
     fn = _build.entry("dense_hop_static", "dense_hop_static",
-                      [p, ctypes.c_int] + [p] * 16 + [i64] * 6 + [p])
+                      [p, ctypes.c_int] + [p] * 16 + [i64] * 7 + [p])
     _build.launch(fn, (
         hidden.data_ptr(), int(hidden.dtype == torch.bfloat16),
         visited.data_ptr(), rela.data_ptr(), tsrc.data_ptr(),
@@ -274,7 +273,7 @@ def dense_hop_static(hidden, visited, rela, tsrc, trel, ttail, tail_rowptr,
         wr.data_ptr(), wq.data_ptr(), ws.data_ptr(), w_alpha.data_ptr(),
         b_alpha.data_ptr(), agg.data_ptr(), new_visited.data_ptr(),
         partial.data_ptr(), partial_kept.data_ptr(), counts.data_ptr(),
-        n, b, d, a, EDGE_CHUNK, items), hidden,
+        n, b, d, a, EDGE_CHUNK, items, rela.shape[0]), hidden,
         f"dense_hop_static (N={n}, b={b}, d={d}, A={a}, "
         f"E={tsrc.shape[0]})")
     dense_hop_static.launches += 1
@@ -453,7 +452,7 @@ def dense_hop_temporal(hidden, visited, rela, tsrc, trel, ttime, ttail,
     p, i64, c_int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn = _build.entry("dense_hop_temporal", "dense_hop_temporal",
                       [p] * 19 + [ctypes.c_float, c_int] + [p] * 5
-                      + [i64] * 6 + [c_int] * 3 + [p])
+                      + [i64] * 7 + [c_int] * 3 + [p])
     _build.launch(fn, (
         hidden.data_ptr(), visited.data_ptr(), rela.data_ptr(),
         tsrc.data_ptr(), trel.data_ptr(), ttime.data_ptr(),
@@ -464,7 +463,7 @@ def dense_hop_temporal(hidden, visited, rela, tsrc, trel, ttime, ttail,
         _ptr(drop_keep), float(1.0 - dropout), ACTS[act][0],
         out.data_ptr(), new_visited.data_ptr(), partial.data_ptr(),
         partial_kept.data_ptr(), counts.data_ptr(), n, b, d, a, EDGE_CHUNK,
-        items, int(tt is not None), int(ra is not None),
+        items, rela.shape[0], int(tt is not None), int(ra is not None),
         int(wdir is not None)), hidden,
         f"dense_hop_temporal (N={n}, b={b}, d={d}, A={a}, E={e[0]})")
     dense_hop_temporal.launches += 1

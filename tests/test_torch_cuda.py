@@ -1169,9 +1169,14 @@ def _dense_table(rng, n, e, hub, dev):
     """(tsrc, ttail, tail_rowptr) int32 of a tail-sorted table of ``e``
     edges over ``n`` entities; ``hub``: a quarter of them into one tail
     (hundreds of chunks of the kernel's walk), the rest random (empty
-    tails among them)."""
-    tail = rng.integers(0, n, e)
-    if hub:
+    tails among them); "zipf": tails drawn by Zipf(1) over the entities
+    (a few hubs split into many items, many short tails)."""
+    if hub == "zipf":
+        p = 1.0 / np.arange(1, n + 1)
+        tail = rng.choice(n, e, p=p / p.sum())
+    else:
+        tail = rng.integers(0, n, e)
+    if hub is True:
         tail[: e // 4] = min(3, n - 1)
     src = rng.integers(0, n, e)
     order = np.argsort(tail, kind="stable")
@@ -1210,12 +1215,19 @@ def _segment64(x, ttail, n):
 
 
 DENSE_STATIC_CASES = [
-    # (N, b, d, A, E, hub): umls's served dense call; odd widths; a hub
-    # over hundreds of chunks at the widest width; an empty table; b = 64
-    # (two query groups), A = 64
-    (135, 50, 48, 5, 10_600, False), (40, 7, 13, 3, 700, True),
-    (300, 33, 61, 9, 9_000, True), (64, 32, 8, 1, 0, False),
-    (500, 64, 64, 64, 20_000, True)]
+    # (N, b, d, A, E, hub, visited share): umls's served dense call; odd
+    # widths; a hub over hundreds of chunks at the widest width; an empty
+    # table; b = 64 (two query groups), A = 64
+    (135, 50, 48, 5, 10_600, False, 0.5), (40, 7, 13, 3, 700, True, 0.5),
+    (300, 33, 61, 9, 9_000, True, 0.5), (64, 32, 8, 1, 0, False, 0.5),
+    (500, 64, 64, 64, 20_000, True, 0.5),
+    # umls-shaped with Zipf tails, ~25% and all pairs kept (a second query
+    # group of 18); state rows of b * d odd floats (no 16-byte blocks);
+    # chunks no lane keeps an edge of; a Zipf hub over many items at 64
+    (135, 50, 48, 5, 10_567, "zipf", 0.25),
+    (135, 50, 48, 5, 10_567, "zipf", 1.0), (61, 9, 21, 5, 3_000, False, 0.5),
+    (200, 5, 20, 30, 8_000, "zipf", 0.02),
+    (300, 20, 64, 5, 60_000, "zipf", 0.5)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1227,11 +1239,11 @@ def test_dense_hop_static_kernel(card, case, dtype):
     counted."""
     from redgnn_tpu_torch.ops import dense_hop as dh
 
-    n, b, d, a, e, hub = case
+    n, b, d, a, e, hub, share = case
     rng = np.random.default_rng(d)
     tsrc, ttail, rowptr = _dense_table(rng, n, e, hub, card)
     r = 20
-    vis = torch.from_numpy(rng.random((n, b)) < 0.5).to(card)
+    vis = torch.from_numpy(rng.random((n, b)) < share).to(card)
     g = torch.Generator(device=card).manual_seed(d)
     rand = lambda *s: torch.randn(*s, generator=g, device=card)  # noqa: E731
     inp = dict(hidden=(rand(n, b, d) * vis[..., None]).to(dtype),
@@ -1260,31 +1272,48 @@ def test_dense_hop_static_kernel(card, case, dtype):
 
 
 DENSE_TEMPORAL_CASES = {
-    # name: (N, b, d, A, E, hub, use_time, attention, linear, masks, act)
+    # name: (N, b, d, A, E, hub, use_time, attention, linear, masks, act,
+    #        visited share)
     "icews14": (7_128, 32, 20, 30, 152_780, False, True, True, True, False,
-                "idd"),
+                "idd", 0.5),
     "icews14_hub_loo": (7_128, 32, 20, 30, 152_780, True, True, True, True,
-                        True, "leakyrelu"),
+                        True, "leakyrelu", 0.5),
     "wo_time": (300, 37, 12, 5, 6_000, True, False, True, True, True,
-                "idd"),
+                "idd", 0.5),
     "wo_attention": (200, 5, 8, 0, 3_000, False, True, False, True, False,
-                     "tanh"),
+                     "tanh", 0.5),
     "bias": (200, 40, 30, 30, 9_000, True, True, True, False, True,
-             "sigmoid"),
+             "sigmoid", 0.5),
     "bias_wo_both": (100, 64, 16, 0, 4_000, True, False, False, False,
-                     False, "softplus"),
+                     False, "softplus", 0.5),
     "relu_w32": (400, 33, 32, 64, 8_000, False, True, True, True, True,
-                 "relu"),
+                 "relu", 0.5),
     # the widths of the interpolation search (hidden_dim 48) and the
     # widest, whose transforms need 74 KB of shared memory at A = 64
     "w48": (300, 32, 48, 40, 9_000, True, True, True, True, True,
-            "leakyrelu"),
+            "leakyrelu", 0.5),
     "w48_bias": (300, 20, 48, 40, 9_000, False, True, True, False, False,
-                 "tanh"),
-    "w64": (250, 40, 64, 64, 8_000, True, True, True, True, True, "relu"),
+                 "tanh", 0.5),
+    "w64": (250, 40, 64, 64, 8_000, True, True, True, True, True, "relu",
+            0.5),
     "w61_wo_time": (200, 9, 61, 7, 5_000, False, False, True, True, False,
-                    "idd"),
-    "empty": (50, 3, 20, 30, 0, False, True, True, True, False, "idd"),
+                    "idd", 0.5),
+    "empty": (50, 3, 20, 30, 0, False, True, True, True, False, "idd", 0.5),
+    # ICEWS14-sized with Zipf tails, ~25% and all pairs kept; state rows
+    # of b * d odd floats and a second query group of 9; chunks no lane
+    # keeps an edge of (bias form); Zipf hubs over many items at 48 and 64
+    "icews14_zipf_sparse": (7_128, 32, 20, 30, 152_780, "zipf", True, True,
+                            True, False, "idd", 0.25),
+    "icews14_zipf_full": (7_128, 32, 20, 30, 152_780, "zipf", True, True,
+                          True, False, "leakyrelu", 1.0),
+    "odd_rows": (61, 41, 21, 7, 3_000, False, True, True, True, True,
+                 "relu", 0.5),
+    "no_lane_keeps": (200, 5, 20, 30, 8_000, "zipf", True, True, False,
+                      False, "tanh", 0.02),
+    "w48_zipf": (300, 20, 48, 40, 60_000, "zipf", True, True, True, True,
+                 "leakyrelu", 0.5),
+    "w64_zipf_full": (250, 40, 64, 64, 20_000, "zipf", True, True, True,
+                      False, "relu", 1.0),
 }
 
 
@@ -1298,7 +1327,7 @@ def test_dense_hop_temporal_kernel(card, case):
     ``masks``: the leave-one-out, edge-dropout and dropout masks."""
     from redgnn_tpu_torch.ops import dense_hop as dh
 
-    n, b, d, a, e, hub, use_time, attn, linear, masks, act = \
+    n, b, d, a, e, hub, use_time, attn, linear, masks, act, share = \
         DENSE_TEMPORAL_CASES[case]
     rng = np.random.default_rng(b)
     tsrc, ttail, rowptr = _dense_table(rng, n, e, hub, card)
@@ -1307,7 +1336,7 @@ def test_dense_hop_temporal_kernel(card, case):
     rand = lambda *s: torch.randn(*s, generator=g, device=card)  # noqa: E731
     ints = lambda hi, *s: torch.from_numpy(  # noqa: E731
         rng.integers(0, hi, s).astype(np.int32)).to(card)
-    vis = torch.from_numpy(rng.random((n, b)) < 0.5).to(card)
+    vis = torch.from_numpy(rng.random((n, b)) < share).to(card)
     rela, a1 = rand(r, d), rand(3 * d, a) * 0.3
     times = ints(t_ids, b)
     ra, qa, tt = dh.temporal_terms(

@@ -30,6 +30,7 @@ from redgnn_tpu.graph.kg import DeviceGraph as JGraph
 from redgnn_tpu.graph.temporal import TemporalKG as JKG
 from redgnn_tpu.models import layers as jlayers
 from redgnn_tpu.models import redgnn as jmodel
+from redgnn_tpu.models import temporal as jtm
 from redgnn_tpu_torch.graph.calibrate import FrontierCaps
 from redgnn_tpu_torch.graph.kg import DeviceGraph
 from redgnn_tpu_torch.graph.temporal import TemporalKG
@@ -76,12 +77,14 @@ def rows_close(got, want, tol):
 def fused_calls(monkeypatch):
     """Counts the plain versions' calls (the fused route on the CPU)."""
     calls = {"static": 0, "temporal": 0}
-    for kind in calls:
+    args = calls["args"] = {"static": [], "temporal": []}
+    for kind in ("static", "temporal"):
         name = f"dense_hop_{kind}_plain"
         fn = getattr(dh, name)
 
         def spy(*a, _fn=fn, _kind=kind, **k):
             calls[_kind] += 1
+            args[_kind].append(a)
             return _fn(*a, **k)
 
         monkeypatch.setattr(dh, name, spy)
@@ -91,11 +94,13 @@ def fused_calls(monkeypatch):
 # ------------------------------------------------------------------ plan
 
 @pytest.mark.parametrize("degrees", [
-    [0, 0, 0], [1, 31, 32, 33, 0, 64, 65], [300, 0, 5], [7] * 40])
+    [0, 0, 0], [1, 31, 32, 33, 0, 64, 65], [300, 0, 5], [7] * 40,
+    # many tails; a Zipf hub split into many items
+    [1] * 4096, [2000 // k for k in range(1, 201)]])
 def test_tail_items_plan(degrees):
-    """Each tail's chunks of EDGE_CHUNK edges (one for an empty tail), the
-    first item of each tail; the count stays within the grid's bound
-    N + E // EDGE_CHUNK."""
+    """Each tail's chunks of EDGE_CHUNK edges (one for an empty tail, so
+    every tail has an item), the first item of each tail; the count stays
+    within the grid's bound N + E // EDGE_CHUNK."""
     deg = np.asarray(degrees)
     rowptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)])
                               .astype(np.int32))
@@ -104,6 +109,7 @@ def test_tail_items_plan(degrees):
     want = np.concatenate([[0], np.cumsum(np.maximum(1, -(-deg // c)))])
     np.testing.assert_array_equal(got, want)
     assert got.dtype == np.int32
+    assert np.all(np.diff(got) >= 1)
     assert got[-1] <= len(deg) + deg.sum() // c
 
 
@@ -320,7 +326,29 @@ TEMPORAL_CASES = {
     "act_relu_idd": (False, dict(act="idd")),
     # the interpolation search's widest hidden and attention widths
     "search_width_48": (True, dict(hidden_dim=48, attn_dim=40)),
+    # three hops, two of them dense: tails whose kept edges fall in all
+    # three directions (asserted), linear and bias transforms
+    "three_directions": (False, dict(n_layer=3)),
+    "three_directions_bias": (False, dict(n_layer=3,
+                                          direction_transform="bias")),
 }
+
+
+def three_directions_kept(args) -> bool:
+    """Whether a temporal dense hop (the plain version's arguments) keeps,
+    for some (tail, query), edges of all three directions."""
+    (_, visited, _, tsrc, _, ttime, ttail, _, times, excl_keep,
+     edge_keep) = args[:11]
+    keep = visited[tsrc.long()]
+    if excl_keep is not None:
+        keep = keep & excl_keep[:, None]
+    if edge_keep is not None:
+        keep = keep & edge_keep
+    direction = torch.sign(ttime[:, None] - times[None, :]) + 1
+    b = keep.shape[1]
+    key = (ttail.long()[:, None] * b + torch.arange(b)) * 3 + direction
+    seen = torch.unique(key[keep])
+    return bool((torch.bincount(seen // 3) == 3).any())
 
 
 @pytest.mark.parametrize("case", list(TEMPORAL_CASES))
@@ -351,6 +379,9 @@ def test_tredgnn_fused_forward_matches_jax(vocab_dir, rng, fused_calls,
     with torch.no_grad():
         got, aux = port_apply(model, kg, batch, caps, excl)
     assert fused_calls["temporal"] == plan.count("dense")
+    if case.startswith("three_directions"):
+        assert any(three_directions_kept(a)
+                   for a in fused_calls["args"]["temporal"])
     ref = float64_scores(model, lambda m: port_apply(m, kg, batch, caps,
                                                      excl))
     q = B - 1  # the padded query scores nothing
@@ -501,3 +532,71 @@ def test_kernels_take_the_search_widths(rng, kind, d, a):
                     tt=f(9, b, d), ra=f(r, a), qa=f(b, a), a1s=f(d, a),
                     a2=f(a, 1), wdir=f(3, d, d))
         assert dh.check_temporal_inputs(**args) == (n, b, d, a)
+
+
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "bias"])
+def test_three_direction_hop_matches_jax(linear):
+    """One temporal dense hop of the JAX package (``TRedGNN._dense_hop``,
+    periodic time term) and `dense_hop_temporal`'s plain version (each
+    edge's message through its direction's transform, as the kernel
+    does) on the same numpy inputs, at the interpolation search's widest
+    widths, in which every tail keeps edges of all three directions
+    (past, now, future) for every query: the state within TOL of each
+    row's largest, visited set and counts equal."""
+    d, a, n, b, e = 48, 40, 9, 3, 120
+    rng = np.random.default_rng(d * 100 + a + linear)
+    times = np.array([10, 11, 12], np.int32)[:b]
+    # each tail: one edge of each direction per query, then random ones
+    tail = np.concatenate([np.repeat(np.arange(n), 3 * b),
+                           rng.integers(0, n, e - 3 * b * n)])
+    ttime = np.concatenate([np.tile(np.concatenate(
+        [times - 1, times, times + 1]), n), rng.integers(8, 15, len(tail)
+                                                       - 3 * b * n)])
+    order = np.argsort(tail, kind="stable")
+    tail, ttime = tail[order].astype(np.int32), ttime[order].astype(np.int32)
+    src = rng.integers(0, n, len(tail)).astype(np.int32)
+    trel = rng.integers(0, 5, len(tail)).astype(np.int32)
+    rowptr = np.concatenate([[0], np.cumsum(np.bincount(tail, minlength=n))]
+                            ).astype(np.int32)
+    vis = np.ones((n, b), bool)
+    vis[0, 1] = False
+    hid = (rng.normal(size=(n, b, d)) * vis[..., None]).astype(np.float32)
+    f = lambda *s, scale=0.3: (rng.normal(size=s) * scale).astype(  # noqa
+        np.float32)
+    rela, a1, a2 = f(5, d), f(3 * d, a), f(a, 1)
+    rels = rng.integers(0, 5, b).astype(np.int32)
+    k = 4
+    freq, t_w, t_b = f(k, scale=0.05), f(2 * k, d), f(d)
+    w3, b3 = f(3, d, d), f(3, d)
+    keep = vis[src]
+    dirs = np.sign(ttime[:, None] - times[None, :]) + 1
+    for v in range(n):
+        for q in range(b):
+            sel = keep[rowptr[v]:rowptr[v + 1], q]
+            assert set(dirs[rowptr[v]:rowptr[v + 1], q][sel]) == {0, 1, 2}
+    cfg = jtm.TemporalModelConfig(
+        n_ent=n, n_rel_vocab=5, idd_rel=4, hidden_dim=d, attn_dim=a,
+        n_frequencies=k, dropout=0.0, act="leakyrelu",
+        direction_transform="linear" if linear else "bias")
+    J = jnp.asarray
+    if linear:
+        past, now, future = (lambda x, w=w: x @ J(w) for w in w3)
+    else:
+        past, now, future = (lambda x, c=c: x + J(c) for c in b3)
+    (want, want_vis), want_nodes, want_edges = jtm.TRedGNN(cfg)._dense_hop(
+        (J(hid), J(vis)), J(rela), J(a1), J(a2), J(rels), J(times), J(src),
+        J(trel), J(ttime), J(tail), J(rowptr), None,
+        (J(freq), J(t_w), J(t_b)), None, past, now, future, None, None)
+    T = torch.from_numpy
+    ra, qa, tt = dh.temporal_terms(T(rela), T(a1), T(rels), T(times),
+                                   int(ttime.max()) + 1, T(freq), T(t_w),
+                                   T(t_b))
+    h, new_vis, n_nodes, n_edges = dh.dense_hop_temporal(
+        T(hid), T(vis), T(rela), T(src), T(trel), T(ttime), T(tail),
+        T(rowptr), T(times), None, None, tt, ra, qa, T(a1[:d]), T(a2),
+        T(w3) if linear else None, None if linear else T(b3), None, 0.0,
+        "leakyrelu", "sorted_scatter", dh.tail_items(T(rowptr)))
+    np.testing.assert_array_equal(new_vis.numpy(), np.asarray(want_vis))
+    assert (int(n_nodes), int(n_edges)) == (int(want_nodes),
+                                            int(want_edges))
+    rows_close(h.numpy(), want, TOL)

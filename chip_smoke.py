@@ -3,16 +3,18 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (time_kernel_variants.py times other builds of the kernel at the same
-hop shapes.) ``python3 chip_smoke.py --phase 7g|7h|7i [--tree DIR]`` runs
-phase 7g, 7h or 7i alone, with this tree's or DIR's script and package.
+hop shapes.) ``python3 chip_smoke.py --phase 7g|7h|7i|7j [--tree DIR]``
+runs phase 7g, 7h, 7i or 7j alone, with this tree's or DIR's script and
+package.
 
 Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit; TF32 off.
-  2. build: compile the seven CUDA kernels from csrc/ with nvcc (the
+  2. build: compile the nine CUDA kernels from csrc/ with nvcc (the
      sorted-segment sum, the range sum, the small-table scatter-add, the
-     list sum, the slot owner and the two dense hop kernels), and the
-     native graph walker (native/graphcore.cpp) with the host's C++
-     compiler, all eight at once; their seconds are printed.
+     list sum, the slot owner, the two dense hop forward kernels and
+     their two backward kernels), and the native graph walker
+     (native/graphcore.cpp) with the host's C++ compiler, all ten at
+     once; their seconds are printed.
   3. kernel vs plain: the kernel against its plain PyTorch version on the
      card, at the shapes of the slice's own hops (batch 50, L=3, D=48)
      plus skewed / empty / out-of-range / kmax-overflow / scalar-path
@@ -56,15 +58,15 @@ Phases (any failure raises, and the script exits non-zero):
          index_add_, which adds with float atomics on a CUDA device, so
          this configuration is held to tolerances and never to equal
          bits.
-     6b. segment_impl='pallas': sort-dedup sparse hops, then dense hops
-         through the kernel where gradients flow (2 launches a hop: the
-         (E, b*d) messages and the (E, b) live counts by the tail-sorted
-         table's ids; a served batch's dense hops take the dense hop
-         kernel, phase 7i). At every
-         dense call's real inputs, serving and training, the kernel
-         against its plain version, forward and backward, with device
-         times, byte bound and index_add_ (each with L2 warm and
-         flushed); one served batch and one train
+     6b. segment_impl='pallas': sort-dedup sparse hops through the
+         kernel, then dense hops through the dense hop kernels, forward
+         and backward (phases 7i and 7j), 1 segment kernel launch a train
+         step. At every dense call's real inputs, serving and training,
+         recorded through the old autograd route (2 sums a hop: the (E,
+         b*d) messages and the (E, b) live counts by the tail-sorted
+         table's ids), the kernel against its plain version, forward and
+         backward, with device times, byte bound and index_add_ (each
+         with L2 warm and flushed); one served batch and one train
          step against the CPU; launches per batch counted; two runs of 4
          steps bit-equal; ms per batch and step, idle share, peak memory.
      6c. the family-sized KG of phase 4 at registry defaults (sort, then
@@ -130,7 +132,21 @@ Phases (any failure raises, and the script exits non-zero):
      route (a served batch no longer sums there).
      ``--phase 7i [--tree DIR]`` times 7a's and umls's served batches and
      evaluations with their peak memory through DIR's own functions, and
-     runs the kernel checks where DIR has them.
+     runs the kernel checks where DIR has them. 7j (in 6a and 7a): the
+     dense hop's backward kernels (dense_hop_static_bwd,
+     dense_hop_temporal_bwd) at every dense hop of one train step (umls's
+     b = 20, d = 48, A = 5; 7a's b = 32, d = 20, A = 30, E = 152,780):
+     their gradients (with the list and scatter sums they feed) against
+     the float64 plain backward on the same inputs ((1e-5 + 2(m-1)u)
+     sum|x| with every product's factors by absolute value, plus twice
+     the plain float32's own error), bit-equal twice, the kernel timed
+     with L2 warm and flushed beside the bound (bytes or float32 work of
+     the kept pairs), the plain version and the old route's backward;
+     launches counted over the trainers' two epochs (one a dense hop of
+     every step); the kernel at widths 48 and 64 on the last call's
+     table. ``--phase 7j [--tree DIR]`` times 7a's and umls's train steps
+     with their peak memory through DIR's own functions, and runs the
+     kernel checks where DIR has them.
   8. the xERTE and SimplE baselines on 7c's dir: 8a xERTE at full width
      (emb 256-128-64-32, 3 DP steps, K 15, 40 attended edges, batch 128,
      cap factor 4) with XErteTrainer's seeded init: 8 timed forward
@@ -404,7 +420,7 @@ def device_ms(fn, calls: int = 20, reps: int = 10) -> float:
     return start.elapsed_time(end) / (reps * calls)
 
 
-def flushed_ms(fn) -> float:
+def flushed_ms(fn, calls: int = 20, reps: int = 10) -> float:
     """Mean device time of one call of ``fn`` with its inputs evicted from
     L2: ``device_ms`` of (read a 256 MB buffer, call) minus ``device_ms``
     of the read alone. A read leaves L2 clean, so the call pays for its
@@ -416,7 +432,8 @@ def flushed_ms(fn) -> float:
         buf.amax()
         fn()
 
-    return device_ms(both) - device_ms(lambda: buf.amax())
+    return (device_ms(both, calls, reps)
+            - device_ms(lambda: buf.amax(), calls, reps))
 
 
 # ------------------------------------------------------------- phases
@@ -1124,6 +1141,7 @@ def eval_check(trainer, tag: str, card):
 def phase_defaults(data_dir: str, card):
     """Phase 6a: the umls-sized KG at the registry's defaults."""
     from redgnn_tpu_torch.models.redgnn import hop_plan
+    from redgnn_tpu_torch.ops.dense_hop import dense_hop_static_bwd
     from redgnn_tpu_torch.utils.config import dataset_config
 
     kg, cfg, model, pred = build_slice(data_dir, "cuda", "umls",
@@ -1171,7 +1189,21 @@ def phase_defaults(data_dir: str, card):
                             else (GRAD_RTOL, GRAD_ATOL_REL)))
     trainer = make_trainer(data_dir, "cuda", cfg,
                            steps=UMLS_TRAIN_STEPS)
-    train_steps_check(trainer, UMLS_TRAIN_STEPS, "[6a]", card)
+    tkinds = hop_plan(trainer.model_cfg, trainer.kg.graph,
+                      trainer.train_caps, cfg.n_batch)
+    # the main path of the static dense hop's backward kernel: the
+    # trainer's two epochs, counted
+    dense_hop_static_bwd.launches = 0
+    step_ms, train_peak = train_steps_check(trainer, UMLS_TRAIN_STEPS,
+                                            "[6a]", card)
+    bwd_launches = dense_hop_static_bwd.launches
+    assert bwd_launches == tkinds.count("dense") * 2 * UMLS_TRAIN_STEPS \
+        > 0, (bwd_launches, tkinds)
+    log(f"[6a] dense_hop_static_bwd launches {bwd_launches} over 2 x "
+        f"{UMLS_TRAIN_STEPS} train steps (= {tkinds.count('dense')} dense "
+        f"hops a step, hops {tkinds})")
+    bwd_rows = dense_bwd_check(static_step_fn(trainer), trainer.kg.graph,
+                               "[6a] 7j", card)
     eval_launches = eval_check(trainer, "[6a]", card)
     # each dense hop of each evaluation batch is one launch
     spec = trainer.kg.eval_spec("valid")
@@ -1182,7 +1214,47 @@ def phase_defaults(data_dir: str, card):
         eval_launches, ekinds, n_eval)
     return {"serve": rows, "launches": launches,
             "serve_ms": float(np.mean(times)), "serve_peak": peak,
-            "eval_launches": eval_launches}
+            "eval_launches": eval_launches, "bwd": bwd_rows,
+            "bwd_launches": bwd_launches, "step_ms": step_ms,
+            "train_peak": train_peak}
+
+
+class old_dense_route:
+    """Within the block the models' dense hops take the old autograd route
+    (``RelAttnLayer.dense_autograd``, ``TRedGNN._dense_hop_autograd``),
+    whose sums go through `segment_sum`: the segment kernel's checks
+    record their dense-call inputs there. No model path takes it
+    otherwise."""
+
+    def __enter__(self):
+        from redgnn_tpu_torch.models import layers, temporal
+
+        def static(mod, h, vis, q_rel, tsrc, trel, ttail, rowptr_t,
+                   dense_agg="sorted_scatter", order=None, rowptr=None,
+                   items=None):
+            return mod.dense_autograd(h, vis, q_rel, tsrc, trel, ttail,
+                                      rowptr_t, dense_agg, order, rowptr)
+
+        def temporal_hop(mod, state, rela, a1, a2, rels, times, tsrc, trel,
+                         ttime, ttail, rowptr_t, order, rowptr, excl,
+                         drop_gen, edrop_gen, *_):
+            return mod._dense_hop_autograd(state, rela, a1, a2, rels, times,
+                                           tsrc, trel, ttime, ttail,
+                                           rowptr_t, order, rowptr, excl,
+                                           drop_gen, edrop_gen)
+
+        self.saved = [(layers.RelAttnLayer, "dense",
+                       layers.RelAttnLayer.dense),
+                      (temporal.TRedGNN, "_dense_hop",
+                       temporal.TRedGNN._dense_hop)]
+        layers.RelAttnLayer.dense = static
+        temporal.TRedGNN._dense_hop = temporal_hop
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+        return False
 
 
 def record_segment_sums(run, module=None):
@@ -1316,17 +1388,18 @@ def phase_dense_kernel(data_dir: str, card):
     kinds = hop_plan(model.cfg, pred.graph, pred.caps, pred.batch)
     n_dense = kinds.count("dense")
     assert n_dense >= 1 and set(kinds) <= {"sort", "dense"}, kinds
-    # the autograd route's sums: 1 a sparse hop, 2 a dense one
+    # the old autograd route's sums: 1 a sparse hop, 2 a dense one
     per_batch = len(kinds) + n_dense
     queries = serving_queries(kg, N_BATCHES * pred.batch)
     q0 = queries[:pred.batch]
 
-    # the dense calls' real inputs, serving and training. A served batch
-    # (no gradients) takes the dense hop kernel, and no segment sum, at its
-    # dense hops: its sums are recorded through the autograd route, which
-    # the training steps take (the same inputs, gradients on)
-    calls = record_segment_sums(
-        lambda: model(pred.graph, *batch_tensors(pred, q0), pred.caps))
+    # the dense calls' real inputs, serving and training. The dense hops
+    # take the dense hop kernels, forward and backward, and no segment sum:
+    # their sums are recorded through the old autograd route (the same
+    # inputs, gradients on)
+    with old_dense_route():
+        calls = record_segment_sums(
+            lambda: model(pred.graph, *batch_tensors(pred, q0), pred.caps))
     assert len(calls) == per_batch, (len(calls), per_batch)
     dense_calls = calls[-2 * n_dense:]  # per hop: messages, live counts
     assert {c[0].shape[1] for c in dense_calls} == \
@@ -1340,7 +1413,9 @@ def phase_dense_kernel(data_dir: str, card):
     caps = exact_train_caps(plain)
     tkinds = hop_plan(plain.model_cfg, plain.kg.graph, caps, cfg.n_batch)
     t_dense = tkinds.count("dense")
-    per_step = len(tkinds) + t_dense
+    # a train step's segment kernel launches: its sparse hops (the dense
+    # hops take the dense hop kernels); the old route's sums: 2 a dense hop
+    per_step = len(tkinds) - t_dense
     assert t_dense >= 1 and set(tkinds) <= {"sort", "dense"}, tkinds
 
     def one_forward():
@@ -1348,8 +1423,9 @@ def phase_dense_kernel(data_dir: str, card):
         scores, _ = plain.model(plain.kg.graph, subs, rels, qmask, caps)
         softmax_ce_loss(scores, objs, qmask)
 
-    calls = record_segment_sums(one_forward)
-    assert len(calls) == per_step, (len(calls), per_step)
+    with old_dense_route():
+        calls = record_segment_sums(one_forward)
+    assert len(calls) == per_step + 2 * t_dense, (len(calls), per_step)
     train_rows = dense_kernel_check(calls[-2 * t_dense:], kg.n_ent,
                                     "[6b] training", card)
     del calls
@@ -1411,9 +1487,9 @@ def phase_dense_kernel(data_dir: str, card):
     assert train_launches == 2 * UMLS_TRAIN_STEPS * per_step, train_launches
     assert list_launches == 2 * UMLS_TRAIN_STEPS * t_dense, list_launches
     log(f"[6b] {train_launches} kernel launches over 2 x "
-        f"{UMLS_TRAIN_STEPS} steps (= ({len(tkinds) - t_dense} sparse + "
-        f"2 x {t_dense} dense) a step); list_sum {list_launches} (= "
-        f"{t_dense} dense hops a step)")
+        f"{UMLS_TRAIN_STEPS} steps (= {per_step} sparse hops a step; the "
+        f"{t_dense} dense hops take the dense hop kernels); list_sum "
+        f"{list_launches} (= {t_dense} dense hops a step)")
     profile_steps(trainer, trainer.train_caps, card)
     return {"serve": serve_rows, "train": train_rows,
             "launches": launches, "launches_per_batch": len(kinds) - n_dense,
@@ -1821,12 +1897,12 @@ def temporal_kernel_path(trainer, pred0, queries, kg_cpu, tag: str, card):
     assert kinds[0] == "sort" and set(kinds) <= {"sort", "dense"}, kinds
     per_batch = len(kinds) + kinds.count("dense")  # dense: 2 calls a hop
     q0 = queries[:pred.batch]
-    # gradients on: a served batch (no gradients) takes the dense hop
-    # kernel at its dense hops, so their sums are recorded through the
-    # autograd route, as training takes it
-    calls = record_segment_sums(
-        lambda: temporal_forward(model, kg, quad_tensors(q0, "cuda"),
-                                 pred.caps), tmod)
+    # the dense hops take the dense hop kernels, forward and backward: their
+    # sums are recorded through the old autograd route (gradients on)
+    with old_dense_route():
+        calls = record_segment_sums(
+            lambda: temporal_forward(model, kg, quad_tensors(q0, "cuda"),
+                                     pred.caps), tmod)
     assert len(calls) == per_batch, (len(calls), per_batch)
     serve_rows = dense_kernel_check(calls, None, f"{tag} serving", card,
                                     sum_bound=True)
@@ -1836,7 +1912,9 @@ def temporal_kernel_path(trainer, pred0, queries, kg_cpu, tag: str, card):
     caps = exact_caps(kg, cfg, quads, cfg.batch_size)
     tkinds = tmod.temporal_hop_plan(mcfg, kg.graph.n_edges, caps,
                                     cfg.batch_size, True)
-    per_step = len(tkinds) + tkinds.count("dense")
+    # a step's launches: its sparse hops (the dense hops take the dense
+    # hop kernels); the old route's sums: 2 a dense hop
+    per_step = len(tkinds) - tkinds.count("dense")
     excl = (torch.as_tensor(kg.exclusion_slots(rows).astype(np.int32),
                             device="cuda")
             if cfg.mode == "interpolation" else None)
@@ -1849,11 +1927,13 @@ def temporal_kernel_path(trainer, pred0, queries, kg_cpu, tag: str, card):
         return scores.detach(), [p.grad.clone() for p in model.parameters()
                                  if p.grad is not None]
 
+    with old_dense_route():
+        calls = record_segment_sums(step, tmod)
+    assert len(calls) == per_step + 2 * tkinds.count("dense"), len(calls)
     segment_sum_sorted_checked.launches = 0
-    calls = record_segment_sums(step, tmod)
+    step()
     step_launches = segment_sum_sorted_checked.launches
-    assert len(calls) == step_launches == per_step, (len(calls),
-                                                     step_launches)
+    assert step_launches == per_step, (step_launches, per_step)
     # every message sum saw its output gradient (the live counts have none)
     assert sum(c[3] is not None for c in calls) == len(tkinds), calls
     train_rows = dense_kernel_check(calls, None, f"{tag} training", card,
@@ -2438,10 +2518,21 @@ def hop_index_check(trainer, pred, queries, main: dict, steps: int, tag: str,
         what = f"{tag} {part}"
         out["slot_owner"][part] = [slot_owner_call_check(*c, what, card)
                                    for c in owners]
-        # 7a's train calls: the kernel must not be slower than index_add_
+        # a dense hop's backward sums the state's gradient by source (rows:
+        # the entities) and, with a time term, the time term's by time id
+        by_src = [int(c[2].shape[0]) == trainer.kg.n_ent + 1 for c in lists]
+        if part == "train":
+            n_src = sum(by_src)
+            assert len(lists) == n_src * (
+                1 + trainer.model_cfg.use_time), (len(lists), n_src)
+            log(f"{what} list_sum: {n_src} calls by source, "
+                f"{len(lists) - n_src} by time id")
+        # 7a's train calls by source: the kernel must not be slower than
+        # index_add_
         out["list_sum"][part] = [
-            list_sum_call_check(*c, what, card, faster=tag == "[7a]")
-            for c in lists]
+            list_sum_call_check(*c, what, card,
+                                faster=tag == "[7a]" and src)
+            for c, src in zip(lists, by_src)]
         for name, calls in (("slot_owner", owners), ("list_sum", lists)):
             out[name][f"launches_per_{part}"] = len(calls)
         if part == "serve":
@@ -2614,24 +2705,43 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 U32 = 2.0 ** -24
 
 
+class Recorder:
+    """A stand-in for a kernel wrapper of `ops/dense_hop.py` while a run is
+    recorded: hands each call's arguments to ``sink``, then calls the
+    wrapper. The wrappers count their launches on themselves by their
+    module name, which names this object meanwhile, so ``launches``
+    reads and writes the wrapper's own counter."""
+
+    def __init__(self, fn, sink):
+        self.fn, self.sink = fn, sink
+
+    def __call__(self, *a):
+        self.sink(a)
+        return self.fn(*a)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
 def dense_hop_calls(run):
     """[kind, (module, hop args), kernel args] of every fused dense hop
     that ``run()`` makes, in order: the hop's module and the arguments of
     RelAttnLayer.dense_fused / TRedGNN._dense_hop_fused ('static' /
     'temporal'), and those its kernel wrapper was called with."""
     from redgnn_tpu_torch.models import layers, temporal
+    from redgnn_tpu_torch.ops import dense_hop as dh
 
     calls, saved = [], []
-    for kind, mod, name in (("static", layers, "dense_hop_static"),
-                            ("temporal", temporal, "dense_hop_temporal")):
-        fn = getattr(mod, name)
-
-        def wrapper(*a, _fn=fn):
-            calls[-1][2] = a
-            return _fn(*a)
-
-        saved.append((mod, name, fn))
-        setattr(mod, name, wrapper)
+    for name in ("dense_hop_static", "dense_hop_temporal"):
+        fn = getattr(dh, name)
+        saved.append((dh, name, fn))
+        setattr(dh, name, Recorder(
+            fn, lambda a: calls[-1].__setitem__(2, a)))
     for kind, cls, name in (("static", layers.RelAttnLayer, "dense_fused"),
                             ("temporal", temporal.TRedGNN,
                              "_dense_hop_fused")):
@@ -3012,6 +3122,418 @@ def phase_dense_alone(mod, card):
     return out
 
 
+# ---------------- phase 7j: the dense hop's backward as one kernel each
+
+# the dense hop's backward, one hand-written kernel per model (XLA autodiff
+# of the compositions in the JAX package, no Pallas kernel)
+DENSE_BWD_KERNELS = {
+    "dense_hop_static_bwd": {
+        "source": "redgnn_tpu_torch/csrc/dense_hop_static_bwd.cu",
+        "replaces": "redgnn_tpu/models/layers.py:159"},
+    "dense_hop_temporal_bwd": {
+        "source": "redgnn_tpu_torch/csrc/dense_hop_temporal_bwd.cu",
+        "replaces": "redgnn_tpu/models/temporal.py:461"},
+}
+# the backwards' arguments that their plain versions do not take (the work
+# plan and the graph's lists)
+BWD_PLAN_ARGS = {"static": (7, 8, 14, 15),
+                 "temporal": (10, 11, 25, 26, 27, 28)}
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Mean time of ``fn`` between CUDA events over ``reps`` calls after
+    one warm-up: for functions of milliseconds (the plain versions, the
+    old route), whose host gaps are a small share and whose intermediates
+    would not fit a captured graph's pool."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def dense_bwd_calls(run):
+    """[kind, (module, hop args), backward args] of every fused dense hop
+    that ``run()`` (a forward and backward) makes: the hop's module and
+    the arguments of RelAttnLayer.dense_fused / TRedGNN._dense_hop_fused,
+    and those its backward wrapper was called with (the backwards run in
+    the reverse order of the hops)."""
+    from redgnn_tpu_torch.models import layers, temporal
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    hops, bwds, saved = [], [], []
+    for name in ("dense_hop_static_bwd", "dense_hop_temporal_bwd"):
+        fn = getattr(dh, name)
+        saved.append((dh, name, fn))
+        setattr(dh, name, Recorder(fn, bwds.append))
+    for kind, cls, name in (("static", layers.RelAttnLayer, "dense_fused"),
+                            ("temporal", temporal.TRedGNN,
+                             "_dense_hop_fused")):
+        meth = getattr(cls, name)
+
+        def hop(self, *a, _meth=meth, _kind=kind):
+            hops.append([_kind, (self, a)])
+            return _meth(self, *a)
+
+        saved.append((cls, name, meth))
+        setattr(cls, name, hop)
+    try:
+        run()
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    assert len(hops) == len(bwds), (len(hops), len(bwds))
+    return [h + [b] for h, b in zip(hops, reversed(bwds))]
+
+
+def dense_bwd_plain_args(kind, args):
+    return [a for i, a in enumerate(args) if i not in BWD_PLAN_ARGS[kind]]
+
+
+def dense_bwd_work(kind, args):
+    """(bytes, float32 FLOPs, kept pairs) a backward call must spend:
+    every input read once and every gradient written once, and the
+    arithmetic that no hoisting removes. Per kept (edge, query): the
+    attention's projection recomputed, its transpose for d_hs and the
+    contraction d A1 (2 d A each), the attention's vectors (6 A), the
+    message's terms (static: 4 d; temporal: 6 d with W G hoisted per
+    tail); per (tail, query, direction with a kept edge): W G and M (x) G
+    (4 d^2; the bias form 4 d)."""
+    if kind == "static":
+        g, hidden, vis, rela, tsrc, trel = args[:6]
+        ws = args[11]
+        n, b, d = hidden.shape
+        a = ws.shape[0]
+        keep = vis[tsrc.long()]
+        kept = int(keep.sum())
+        flops = kept * (6 * d * a + 6 * a + 4 * d)
+        outs = n * b * d + rela.numel() + args[9].numel() \
+            + args[10].numel() + ws.numel() + a + 1
+    else:
+        (g, h, nv, hidden, vis, rela, tsrc, trel, ttime, ttail, _, _, times,
+         excl, ekeep, tt, ra, qa, a1s, a2, wdir, bdir) = args[:22]
+        n, b, d = hidden.shape
+        a = 0 if ra is None else ra.shape[1]
+        keep = vis[tsrc.long()]
+        if excl is not None:
+            keep = keep & excl[:, None]
+        if ekeep is not None:
+            keep = keep & ekeep
+        kept = int(keep.sum())
+        direction = torch.sign(ttime[:, None] - times[None, :]) + 1
+        key = ((ttail.long()[:, None] * b
+                + torch.arange(b, device=keep.device)) * 3 + direction)
+        triples = int(torch.unique(key[keep]).numel())
+        del keep, direction, key
+        flops = kept * ((6 * d * a + 6 * a) + 6 * d) + triples * (
+            4 * d * d if wdir is not None else 4 * d)
+        outs = sum(x.numel() for x in (hidden, rela, tt, ra, qa, a1s, a2,
+                                       wdir, bdir) if x is not None)
+    moved = sum(t.numel() * t.element_size() for t in args
+                if torch.is_tensor(t)) + 4 * outs
+    return moved, flops, kept
+
+
+def old_route_bwd_ms(kind, hop, graph, g) -> float:
+    """The old route's backward: autograd of RelAttnLayer.dense_autograd /
+    TRedGNN._dense_hop_autograd on the hop's arguments (its forward built
+    once, outside the timing), from a cotangent of its output (``g`` for
+    the temporal hop's h; static: a seeded one of act(W_h agg), whose
+    backward through W_h is a small share), to the state and the
+    parameters."""
+    module, hop_args = hop
+    hop_args = list(hop_args)
+    with torch.enable_grad():
+        # the state as a leaf: the step's own graph behind it is freed
+        if kind == "static":
+            state = hop_args[0] = hop_args[0].detach().requires_grad_()
+            out = module.dense_autograd(*hop_args[:8], graph.tsrc_order,
+                                        graph.rowptr)[0]
+            g = torch.randn(out.shape, device=out.device,
+                            generator=torch.Generator(
+                                device=out.device).manual_seed(SEED))
+        else:
+            state = hop_args[0][0].detach().requires_grad_()
+            hop_args[0] = (state, hop_args[0][1])
+            out = module._dense_hop_autograd(
+                *hop_args[:11], graph.tsrc_order, graph.rowptr,
+                *hop_args[11:14])[0][0]
+        inputs = [state] + [p for p in module.parameters()]
+        ms = event_ms(lambda: torch.autograd.grad(
+            out, inputs, g, retain_graph=True, allow_unused=True))
+        del out
+    return ms
+
+
+def bwd_float64_check(kind, args, got, what: str):
+    """A backward call's gradients ``got`` against the float64 plain
+    backward on the same inputs (``args``, the wrapper's), within
+    `ops.dense_hop.bwd_bound` with its ``kinks`` term, the parameters'
+    sums at the chain of additions of the wrapper's last launch (the one
+    that gave ``got``) and at their scale; on failure the worst element of
+    the worst gradient is logged. Returns (the bound's largest share, max
+    |diff| to the float32 plain backward)."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    plan = getattr(dh, f"dense_hop_{kind}_bwd").plan
+
+    plain = getattr(dh, f"dense_hop_{kind}_bwd_plain")
+    pargs = dense_bwd_plain_args(kind, args)
+    want32 = plain(*pargs)
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want32)
+              if x is not None and x.numel())
+    ref = [x.double() if torch.is_tensor(x) and x.dtype == torch.float32
+           else x for x in pargs]
+    want = plain(*ref)
+    s_abs = plain(*ref, absolute=True)
+    kinks = plain(*ref, kinks=True)
+    if kind == "static":
+        n, b, _ = args[1].shape
+        m = dh.bwd_term_counts("static", args[4], args[5], None, b, n,
+                               args[3].shape[0], None, plan)
+    else:
+        n, b, _ = args[3].shape
+        m = dh.bwd_term_counts("temporal", args[6], args[7], args[8], b, n,
+                               args[5].shape[0], None if args[15] is None
+                               else args[15].shape[0], plan)
+    shares = dh.bwd_shares(got, want, s_abs, m, want32, kinks)
+    share = max(x for x in shares if x is not None)
+    if share > 1.0:  # the worst element of the worst gradient, then fail
+        i = max((k for k, x in enumerate(shares) if x is not None),
+                key=lambda k: shares[k])
+        x, w, sa, p = (t[i].double() for t in (got, want, s_abs, want32))
+        j = int(((x - w).abs() / torch.clamp(sa, min=1e-300)).argmax())
+        log(f"{what} 7j {kind} backward: gradient {i} fails, shares "
+            f"{shares}; its worst element {j}: kernel {float(x.flatten()[j])}"
+            f", float64 {float(w.flatten()[j])}, float32 plain "
+            f"{float(p.flatten()[j])}, sum|x| {float(sa.flatten()[j])}")
+    assert share <= 1.0, (what, shares)
+    return share, err
+
+
+def dense_bwd_call_check(kind, hop, args, graph, what: str, card):
+    """Phase 7j at one dense hop's backward: the kernel's gradients (with
+    the list and scatter sums it feeds) against the float64 plain
+    backward on the same inputs within `bwd_bound` (with its ``kinks``
+    term: the whole of every attention term whose relu mask float32 may
+    flip; max |diff| to the float32 plain backward printed), the same
+    bits on a second call; the
+    kernel's device time with L2 warm and flushed, the whole backward
+    wrapper's and the plain version's (CUDA events), the old route's
+    backward (library_ms: no single PyTorch call computes it), beside the
+    bound. Returns the row."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    wrapper = getattr(dh, f"dense_hop_{kind}_bwd")
+    plain = getattr(dh, f"dense_hop_{kind}_bwd_plain")
+    pargs = dense_bwd_plain_args(kind, args)
+    got, again = wrapper(*args), wrapper(*args)
+    torch.cuda.synchronize()
+    assert all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(got, again)), "two calls gave different bits"
+    share, err = bwd_float64_check(kind, args, got, what)
+    n, b, d = (args[1] if kind == "static" else args[3]).shape
+    # the kernel alone: its C entry through the wrapper with the list and
+    # scatter sums left out
+    t_all = device_ms(lambda: wrapper(*args), calls=5, reps=4)
+    t_k, t_f = kernel_only_ms(kind, args)
+    t_p = event_ms(lambda: plain(*pargs))
+    t_old = old_route_bwd_ms(kind, hop, graph, args[0])
+    moved, flops, kept = dense_bwd_work(kind, args)
+    b_bytes = moved / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / FP32_FLOPS_PER_S * 1e3
+    b_ms, by = max((b_bytes, "bytes"), (b_ops, "operations"))
+    e = int(args[4 if kind == "static" else 6].shape[0])
+    log(f"{what} 7j {kind} backward N={n} b={b} d={d} E={e}: {kept} kept "
+        f"(edge, query) pairs; gradients at most {share:.3g} of the float64 "
+        f"bound, max |diff| to the float32 plain backward {err:.3g}; same "
+        f"bits twice; kernel {t_k:.4f} ms with L2 warm, {t_f:.4f} ms "
+        f"flushed; with its list and scatter sums {t_all:.4f} ms; plain "
+        f"{t_p:.4f} ms; old route's backward {t_old:.4f} ms (CUDA events); "
+        f"bound {b_ms * 1e3:.2f} us by {by} ({moved / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP) = {b_ms / t_k:.1%} of the kernel's time "
+        f"({card})")
+    return {"kind": kind, "N": n, "b": b, "d": d, "E": e, "kept": kept,
+            "max_abs_err": err, "bound_share": share, "ms": t_k,
+            "ms_l2_flushed": t_f, "with_sums_ms": t_all, "plain_ms": t_p,
+            "old_route_ms": t_old, "bound_ms": b_ms, "bound_by": by,
+            "bytes": moved, "flops": flops}
+
+
+def kernel_only_ms(kind, args, flushed: bool = True):
+    """(L2 warm, flushed or None) device time of the backward kernel's C
+    entry alone at one call (the wrapper with `list_sum` and
+    `scatter_rows_add` replaced by no-ops)."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+    from redgnn_tpu_torch.ops import gather
+
+    wrapper = getattr(dh, f"dense_hop_{kind}_bwd")
+    saved = gather.list_sum, gather.scatter_rows_add
+    gather.list_sum = lambda g, order, off: g[:off.shape[0] - 1]
+    gather.scatter_rows_add = lambda g, idx, rows: g[:rows]
+    try:
+        return (device_ms(lambda: wrapper(*args), calls=5, reps=4),
+                flushed_ms(lambda: wrapper(*args), calls=5, reps=4)
+                if flushed else None)
+    finally:
+        gather.list_sum, gather.scatter_rows_add = saved
+
+
+def dense_bwd_widths(kind, args, tag: str, card):
+    """The backward kernel at hidden widths 48 and 64 on one train call's
+    table, visited set, time ids and masks, with seeded random state,
+    weights (attention width 30 for the temporal hop, the call's for the
+    static one) and cotangent (the temporal h and visited set from the
+    forward kernel): within the float64 bound of `dense_bwd_call_check`,
+    the same bits twice, and the kernel's device time with L2 warm.
+    Returns {width: ms}."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    args = list(args)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for d in (48, 64):
+        def rand(*s, scale=1.0):
+            return torch.randn(*s, generator=gen, device="cuda") * scale
+
+        run = list(args)
+        if kind == "static":
+            hidden, vis, rela = args[1], args[2], args[3]
+            n, b, _ = hidden.shape
+            r, a = rela.shape[0], args[11].shape[0]
+            run[0] = rand(n, b, d)
+            run[1] = (rand(n, b, d) * vis[..., None]).to(hidden.dtype)
+            run[3] = rand(r, d).to(rela.dtype)
+            run[9:14] = [rand(r, a, scale=0.3), rand(b, a, scale=0.3),
+                         rand(a, d, scale=0.3), rand(a), rand(1)]
+        else:
+            hidden, vis, rela, tt, wdir = args[3], args[4], args[5], \
+                args[15], args[20]
+            n, b, _ = hidden.shape
+            r, a = rela.shape[0], 30
+            run[3] = rand(n, b, d) * vis[..., None]
+            run[5] = rand(r, d)
+            run[15] = None if tt is None else rand(tt.shape[0], b, d,
+                                                   scale=0.1)
+            run[16:20] = [rand(r, a, scale=0.3), rand(b, a, scale=0.3),
+                          rand(d, a, scale=0.3), rand(a, 1, scale=0.3)]
+            run[20] = rand(3, d, d, scale=0.3) if wdir is not None else None
+            run[21] = None if wdir is not None else rand(3, d)
+            run[22] = None  # no dropout mask
+            fwd = dh.dense_hop_temporal(
+                run[3], run[4], run[5], run[6], run[7], run[8], run[9],
+                run[10], run[12], run[13], run[14], run[15], run[16],
+                run[17], run[18], run[19], run[20], run[21], None, 0.0,
+                run[24], "sorted_scatter", run[11])
+            run[0] = rand(n, b, d)
+            run[1], run[2] = fwd[0], fwd[1]
+        wrapper = getattr(dh, f"dense_hop_{kind}_bwd")
+        got, again = wrapper(*run), wrapper(*run)
+        torch.cuda.synchronize()
+        assert all(x is None and y is None or torch.equal(x, y)
+                   for x, y in zip(got, again)), d
+        share = bwd_float64_check(kind, run, got, f"{tag} width {d}")[0]
+        del got, again
+        out[d] = kernel_only_ms(kind, run, flushed=False)[0]
+        log(f"{tag} 7j {kind} backward at width {d} (A={a}) on the call's "
+            f"table: at most {share:.3g} of the float64 bound, same bits "
+            f"twice; kernel {out[d]:.4f} ms with L2 warm ({card})")
+        del run
+    return out
+
+
+def dense_bwd_check(step, graph, tag: str, card):
+    """Phase 7j at a cell: the backward kernel at every dense hop of one
+    train step (``step``: forward and backward), `dense_bwd_call_check`,
+    and at widths 48 and 64 on the last call's table. Returns the rows."""
+    calls = dense_bwd_calls(step)
+    assert calls, "no dense hop's backward ran"
+    with torch.no_grad():  # the recorded parameters require gradients
+        rows = [dense_bwd_call_check(kind, hop, args, graph,
+                                     f"{tag} train", card)
+                for kind, hop, args in calls]
+        kind, _, args = calls[-1]
+        rows[-1]["widths_ms"] = dense_bwd_widths(kind, args, tag, card)
+    del calls
+    return rows
+
+
+def static_step_fn(trainer):
+    """One training step's forward and backward at the trainer's exact
+    train caps on its first batch, as a function of no arguments."""
+    from redgnn_tpu_torch.train.loop import softmax_ce_loss
+
+    caps = exact_train_caps(trainer)
+
+    def step():
+        subs, rels, objs, qmask = step_tensors(trainer, 0)
+        scores, _ = trainer.model(trainer.kg.graph, subs, rels, qmask, caps)
+        softmax_ce_loss(scores, objs, qmask).backward()
+        trainer.model.zero_grad(set_to_none=True)
+
+    return step
+
+
+BWD_ALONE_STEPS = 8  # train steps an epoch in --phase 7j
+
+
+def phase_bwd_alone(mod, card):
+    """Phase 7j alone (``--phase 7j``): through ``mod``'s own functions,
+    7a's dir and trainer as phase 7 builds them (two epochs of
+    BWD_ALONE_STEPS steps, the second timed, and its peak memory), then
+    the umls entry at its defaults (the same numbers); where ``mod`` has
+    phase 7j, the backward kernels at one train step's dense hops of
+    each. ``mod`` is this script or, with ``--tree DIR``, DIR's
+    chip_smoke.py running DIR's package: the parent tree's steps on the
+    same card. Returns the numbers by cell."""
+    from redgnn_tpu_torch.cli.train import load_temporal_kg
+    from redgnn_tpu_torch.train.temporal_loop import TemporalTrainer
+    from redgnn_tpu_torch.utils.config import dataset_config
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mod.write_icews14_sized(tmp, False)
+        cfg = dataset_config("temporal", "ICEWS14_TeMP",
+                             max_train_batches=BWD_ALONE_STEPS,
+                             max_eval_batches=1)
+        trainer = TemporalTrainer(load_temporal_kg(tmp, cfg, "cuda"), cfg)
+        with torch.no_grad():  # as phase 7a scales it
+            trainer.model.classifier_w.abs_().mul_(1e-6)
+        step_ms, peak = mod.temporal_train_check(trainer, "[7a] 7j", card)
+        out["ICEWS14_TeMP"] = {"step_ms": step_ms, "train_peak": peak}
+        if hasattr(mod, "dense_bwd_check"):
+            rows = mod.dense_bwd_check(mod.temporal_step_fn(trainer),
+                                       trainer.kg.graph, "[7a]", card)
+            out["ICEWS14_TeMP"]["bwd"] = bwd_rows_summary(rows)
+        del trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        mod.write_umls_sized_kg(tmp)
+        kg, cfg, _, _ = mod.build_slice(tmp, "cuda", "umls",
+                                        scan_chunk=BWD_ALONE_STEPS)
+        trainer = mod.make_trainer(tmp, "cuda", cfg, steps=BWD_ALONE_STEPS)
+        step_ms, peak = mod.train_steps_check(trainer, BWD_ALONE_STEPS,
+                                              "[umls] 7j", card)
+        out["umls"] = {"step_ms": step_ms, "train_peak": peak}
+        if hasattr(mod, "dense_bwd_check"):
+            rows = mod.dense_bwd_check(mod.static_step_fn(trainer),
+                                       trainer.kg.graph, "[umls]", card)
+            out["umls"]["bwd"] = bwd_rows_summary(rows)
+    return out
+
+
+def bwd_rows_summary(rows) -> dict:
+    keys = ("ms", "ms_l2_flushed", "with_sums_ms", "plain_ms",
+            "old_route_ms", "bound_ms", "bound_share", "kept")
+    out = {k: [r[k] for r in rows] for k in keys}
+    out["widths_ms"] = rows[-1]["widths_ms"]
+    return out
+
+
 def phase_temporal(data_dir: str, name: str, tag: str, card):
     """Phase 7a / 7c: the registry entry ``name`` on an ICEWS14-sized dir
     (loaded as the CLI loads it) at its defaults, then (7b, and within 7c)
@@ -3020,6 +3542,7 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
 
     from redgnn_tpu_torch.cli.train import load_temporal_kg
     from redgnn_tpu_torch.models.temporal import TRedGNN, temporal_hop_plan
+    from redgnn_tpu_torch.ops.dense_hop import dense_hop_temporal_bwd
     from redgnn_tpu_torch.ops.frontier import slot_owner
     from redgnn_tpu_torch.ops.gather import (
         list_sum,
@@ -3121,15 +3644,18 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
     del strict
     kernel = temporal_kernel_path(trainer, pred, queries, kg_cpu,
                                   "[7b]" if tag == "[7a]" else tag, card)
-    # the main path of the gather backwards' kernels and of the dense
-    # hop's list sum: the trainer's two epochs, counted
+    # the main path of the gather backwards' kernels, of the dense hop's
+    # list sums and of its backward kernel: the trainer's two epochs,
+    # counted
     range_sum.launches = scatter_rows_add.launches = 0
     slot_owner.launches = list_sum.launches = 0
+    dense_hop_temporal_bwd.launches = 0
     step_ms, train_peak = temporal_train_check(trainer, tag, card)
     main = {"range_sum": range_sum.launches,
             "take_rows_grad": scatter_rows_add.launches,
             "slot_owner": slot_owner.launches,
-            "list_sum": list_sum.launches}
+            "list_sum": list_sum.launches,
+            "dense_hop_temporal_bwd": dense_hop_temporal_bwd.launches}
     steps = 2 * cfg.max_train_batches
     tkinds = temporal_hop_plan(trainer.model_cfg, kg.graph.n_edges,
                                trainer.caps["train"], cfg.batch_size, True)
@@ -3137,7 +3663,12 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
         f"defaults (hops {tkinds}): {main}")
     assert main["take_rows_grad"] > 0, main
     assert main["range_sum"] > 0 or not forecasting, main
-    assert main["list_sum"] == tkinds.count("dense") * steps, main
+    # a dense hop's backward: its kernel, then the state's gradient summed
+    # by source and (with a time term) the time term's by time id
+    t_dense = tkinds.count("dense")
+    assert main["dense_hop_temporal_bwd"] == t_dense * steps, main
+    assert main["list_sum"] == t_dense * steps * (
+        1 + trainer.model_cfg.use_time), main
     assert main["slot_owner"] == (len(tkinds) - tkinds.count("dense")) \
         * steps, main
     assert main["list_sum"] > 0 or forecasting, main
@@ -3152,6 +3683,12 @@ def phase_temporal(data_dir: str, name: str, tag: str, card):
     kernel["dense_hop"] = {"serve": dense_rows,
                            "launches": served["dense_hop"],
                            "eval_launches": eval_launches}
+    if t_dense:
+        kernel["dense_bwd"] = {
+            "train": dense_bwd_check(temporal_step_fn(trainer), kg.graph,
+                                     f"{tag} 7j", card),
+            "launches": main["dense_hop_temporal_bwd"]}
+        trainer.model.zero_grad(set_to_none=True)
     kernel.update(serve_ms=float(np.mean(times)), step_ms=step_ms,
                   walk_s=walk_s, walks=walks, serve_peak=peak,
                   train_peak=train_peak, eval_qps=eval_qps,
@@ -4327,8 +4864,9 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=["7g", "7h", "7i"],
-                    help="run phase 7g, 7h or 7i alone (after phases 1-2); "
+    ap.add_argument("--phase", choices=["7g", "7h", "7i", "7j"],
+                    help="run phase 7g, 7h, 7i or 7j alone (after phases "
+                    "1-2); "
                     "prints its times as one JSON line, and no 'ok' line")
     ap.add_argument("--tree", help="with --phase: a checkout of another "
                     "commit (e.g. the parent, unpacked by git archive); its "
@@ -4354,8 +4892,10 @@ def main(argv=None) -> int:
             res = {"gather": phase_gather_alone(mod, smi)}
         elif args.phase == "7h":
             res = {"cells": phase_hop_alone(mod, smi)}
-        else:
+        elif args.phase == "7i":
             res = {"cells": phase_dense_alone(mod, smi)}
+        else:
+            res = {"cells": phase_bwd_alone(mod, smi)}
         log(json.dumps({"phase": args.phase, "tree": args.tree or ".",
                         "card": smi, **res}))
         return 0
@@ -4484,6 +5024,27 @@ def main(argv=None) -> int:
             "name": kname, "route": "cuda", **where, "launches": launches,
             "max_abs_err": max([0.0] + [r["max_abs_err"]
                                         for r in rows + more]),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": bound_by,
+            "library_ms": sum(r["old_route_ms"] for r in rows)})
+    # phase 7j's kernels: each over one train step's dense hops of its
+    # main path (umls's defaults in 6a, 7a), launches over the trainer's
+    # two epochs; library_ms is the old route's backward (autograd of its
+    # tensor ops): no single PyTorch call computes it
+    b7a = kernel["temporal"]["ICEWS14_TeMP"]["dense_bwd"]
+    picks = {"dense_hop_static_bwd": (umls["bwd"], umls["bwd_launches"]),
+             "dense_hop_temporal_bwd": (b7a["train"], b7a["launches"])}
+    for kname, where in DENSE_BWD_KERNELS.items():
+        rows, launches = picks[kname]
+        bound_by = max(("bytes", sum(r["bytes"] for r in rows)
+                        / HBM_BYTES_PER_S),
+                       ("operations", sum(r["flops"] for r in rows)
+                        / FP32_FLOPS_PER_S), key=lambda x: x[1])[0]
+        entries.append({
+            "name": kname, "route": "cuda", **where, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),

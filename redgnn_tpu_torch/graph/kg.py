@@ -60,6 +60,20 @@ def build_src_order(tsrc: np.ndarray) -> np.ndarray:
     return np.argsort(tsrc, kind="stable").astype(np.int32)
 
 
+def build_time_order(ttime: np.ndarray, n_time: int):
+    """The stable order of a tail-sorted table's time ids and its row
+    offsets, both int32: the edges of time id t, in table order, at
+    ``off[t]:off[t + 1]`` of ``order`` (``n_time`` past every time id).
+    The list the temporal dense hop's backward sums the time term's
+    gradient by."""
+    ttime = np.asarray(ttime)
+    order = np.argsort(ttime, kind="stable").astype(np.int32)
+    off = np.zeros(n_time + 1, dtype=np.int32)
+    np.cumsum(np.bincount(ttime, minlength=n_time)[:n_time],
+              out=off[1:])
+    return order, off
+
+
 class DeviceGraph:
     """Device-resident CSR fact graph (+ self-loops), int32 tensors.
 
@@ -73,14 +87,17 @@ class DeviceGraph:
     ``tail_rowptr`` is given (a temporal graph, whose tail-sorted table
     lives beside it, passes its own). ``n_time`` (a temporal table's) is
     the count of time ids, past every edge time, whose time term a dense
-    hop computes once each."""
+    hop computes once each, and ``time_order`` / ``time_off`` (a temporal
+    table's, `build_time_order`) the list its backward sums the time
+    term's gradient by."""
 
     FIELDS = ("rowptr", "rel", "tail", "tsrc", "trel", "ttail",
               "tail_rowptr", "tsrc_order")
 
     def __init__(self, rowptr, rel, tail, tsrc=None, trel=None, ttail=None,
                  tail_rowptr=None, tsrc_order=None, tail_items=None,
-                 n_time: int | None = None):
+                 n_time: int | None = None, time_order=None,
+                 time_off=None):
         self.rowptr = rowptr
         self.rel = rel
         self.tail = tail
@@ -93,6 +110,8 @@ class DeviceGraph:
             tail_items = tail_items_of(tail_rowptr)
         self.tail_items = tail_items
         self.n_time = n_time
+        self.time_order = time_order
+        self.time_off = time_off
 
     @property
     def n_edges(self) -> int:
@@ -111,10 +130,14 @@ class DeviceGraph:
         return self.rowptr.device
 
     def to(self, device) -> "DeviceGraph":
-        return DeviceGraph(*(None if getattr(self, f) is None
-                             else getattr(self, f).to(device)
-                             for f in self.FIELDS + ("tail_items",)),
-                           n_time=self.n_time)
+        def moved(f):
+            t = getattr(self, f)
+            return None if t is None else t.to(device)
+
+        return DeviceGraph(*(moved(f) for f in self.FIELDS + ("tail_items",)),
+                           n_time=self.n_time,
+                           time_order=moved("time_order"),
+                           time_off=moved("time_off"))
 
     @classmethod
     def from_csr(cls, rowptr, rel, tail, n_ent: int,

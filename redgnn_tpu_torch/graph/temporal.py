@@ -28,7 +28,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from redgnn_tpu_torch.graph.kg import DeviceGraph, build_src_order
+from redgnn_tpu_torch.graph.kg import (
+    DeviceGraph,
+    build_src_order,
+    build_time_order,
+)
 from redgnn_tpu_torch.ops.dense_hop import tail_items
 from redgnn_tpu_torch.utils.device import resolve_device
 
@@ -307,13 +311,17 @@ class TemporalKG:
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
 
-        # the dense hop's gather backward sums by the sources' order; its
-        # forward kernel walks the tail ranges by tail_items and takes the
-        # time term once per time id (n_time covers every edge time)
+        # the dense hop's backward sums the state's gradient by the
+        # sources' order and the time term's by the time ids' order; its
+        # kernels walk the tail ranges by tail_items and take the time
+        # term once per time id (n_time covers every edge time)
+        time_order, time_off = build_time_order(self.dense_np[2],
+                                                self.n_time)
         self.graph = DeviceGraph(
             dev(rowptr), dev(rel), dev(tail),
             tsrc_order=dev(build_src_order(self.dense_np[0])),
-            tail_items=tail_items(dev(tail_rowptr)), n_time=self.n_time)
+            tail_items=tail_items(dev(tail_rowptr)), n_time=self.n_time,
+            time_order=dev(time_order), time_off=dev(time_off))
         self.etime = dev(time)
         self.ekey = dev(ekey)
         self.selfloop_slot = dev(selfloop_slot)

@@ -40,11 +40,7 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
-from redgnn_tpu_torch.ops.dense_hop import (
-    dense_hop_static,
-    grad_free,
-    static_terms,
-)
+from redgnn_tpu_torch.ops.dense_hop import dense_hop_static_fn, static_terms
 from redgnn_tpu_torch.ops.frontier import Frontier
 from redgnn_tpu_torch.ops.gather import (
     gather_bf16,
@@ -229,55 +225,47 @@ class RelAttnLayer(nn.Module):
         (act(W_h agg) (n_ent, b, d), new_visited (n_ent, b), live-edge
         count).
 
-        When no gradient can flow (`ops.dense_hop.grad_free`: gradients
-        off, or neither the state nor a parameter requires one) the sum
-        before ``W_h`` is `ops.dense_hop.dense_hop_static`: one kernel on a
-        CUDA device (``tail_items`` is the graph's work plan of it, which
-        the kernel needs), its plain version on the CPU; ``dense_agg``
-        picks only the plain version's summation. Otherwise it is
-        `dense_autograd`, whose packed (state, visited) rows are gathered
-        by `gather_rows_listed`, whose backward sums each source's edges
-        through ``tsrc_order`` and the CSR's ``rowptr`` (the graph's): the
-        list-sum kernel on a CUDA device, which needs both; the CPU does
-        not. ``dense_agg='sorted_scatter'`` sums the (E, b*d) messages
-        and the (E, b) live flags by ``ttail`` through `segment_sum` with
-        the layer's ``segment_impl`` (``ttail`` is ascending, so 'pallas'
-        is the sorted-segment-sum kernel); ``'cumsum'`` takes differences
-        of a prefix sum at the static ``tail_rowptr`` ranges.
+        The sum before ``W_h`` is `ops.dense_hop.dense_hop_static_fn`,
+        gradients on or off: on a CUDA device one forward kernel
+        (``tail_items`` is the graph's work plan of it) and, when a
+        gradient flows, one backward kernel whose per-pair rows are summed
+        by source through ``tsrc_order`` and the CSR's ``rowptr`` (the
+        graph's; the list-sum kernel needs both); on the CPU their plain
+        versions, which do not. ``dense_agg`` picks only the plain
+        forward's summation ('sorted_scatter': a scatter by ``ttail``;
+        'cumsum': differences of a prefix sum at the ``tail_rowptr``
+        ranges).
 
-        This differs from the JAX package, whose dense hop always takes the
-        plain scatter-add (``impl="xla"``, `redgnn_tpu/models/layers.py:206,209`)
-        whatever ``segment_impl`` says: there the kernel never sees a dense
-        hop. The sums are the same function either way; with
-        ``segment_impl='xla'`` (the default) the two packages agree in route
-        as well."""
-        if grad_free(hidden_dense, *self.parameters()):
-            return self.dense_fused(hidden_dense, visited, q_rel, tsrc, trel,
-                                    ttail, tail_rowptr, dense_agg,
-                                    tail_items)
-        return self.dense_autograd(hidden_dense, visited, q_rel, tsrc, trel,
-                                   ttail, tail_rowptr, dense_agg, tsrc_order,
-                                   rowptr)
+        The JAX package's dense hop is an XLA composition differentiated
+        by autodiff (`redgnn_tpu/models/layers.py:159-210`); the sums are
+        the same function."""
+        return self.dense_fused(hidden_dense, visited, q_rel, tsrc, trel,
+                                ttail, tail_rowptr, dense_agg, tail_items,
+                                tsrc_order, rowptr)
 
     def dense_fused(self, hidden_dense, visited, q_rel, tsrc, trel, ttail,
-                    tail_rowptr, dense_agg="sorted_scatter", tail_items=None):
-        """`dense` as `ops.dense_hop.dense_hop_static` (no gradient)."""
+                    tail_rowptr, dense_agg="sorted_scatter", tail_items=None,
+                    tsrc_order=None, rowptr=None):
+        """`dense` through `ops.dense_hop.dense_hop_static_fn`."""
         # float32: the table's own dtype (a float64 referee stays so)
         rela_c = (self.rela_embed if self.cdt == torch.float32
                   else self.rela_embed.to(self.cdt))
         wr, wq = static_terms(rela_c, q_rel, self.Wr_attn.weight,
                               self.Wqr_attn.weight, self.Wqr_attn.bias)
-        agg, new_visited, n_live = dense_hop_static(
-            hidden_dense.to(rela_c.dtype), visited, rela_c, tsrc, trel,
-            ttail, tail_rowptr, wr, wq, self.Ws_attn.weight,
-            self.w_alpha.weight[0], self.w_alpha.bias, dense_agg, tail_items)
+        agg, new_visited, n_live = dense_hop_static_fn(
+            hidden_dense, visited, self.rela_embed, tsrc, trel, ttail,
+            tail_rowptr, wr, wq, self.Ws_attn.weight, self.w_alpha.weight[0],
+            self.w_alpha.bias, dense_agg, tail_items, tsrc_order, rowptr,
+            rela_c.dtype)
         return ACTIVATIONS[self.act](self.W_h(agg)), new_visited, n_live
 
     def dense_autograd(self, hidden_dense, visited, q_rel, tsrc, trel, ttail,
                        tail_rowptr, dense_agg="sorted_scatter",
                        tsrc_order=None, rowptr=None):
-        """`dense` through autograd-able tensor ops (the route that
-        training takes)."""
+        """`dense` through autograd-able tensor ops: the old route, which
+        no model path calls. It stays as the yardstick that chip_smoke.py
+        times the fused hop against (phases 7i and 7j) and as a float64
+        referee in tests."""
         d = self.rela_embed.shape[1]
         n, b = visited.shape
         e_all = tsrc.shape[0]

@@ -61,8 +61,7 @@ from redgnn_tpu_torch.models.layers import _uniform_init_
 from redgnn_tpu_torch.models.redgnn import _dropout, _resolve_dedup
 from redgnn_tpu_torch.ops.dense_hop import (
     ACTS,
-    dense_hop_temporal,
-    grad_free,
+    dense_hop_temporal_fn,
     temporal_terms,
 )
 from redgnn_tpu_torch.ops.frontier import (
@@ -327,7 +326,7 @@ class TRedGNN(nn.Module):
                     graph.rowptr, excl_keep,
                     generator if drop_dense else None,
                     generator if edrop else None, graph.tail_items,
-                    graph.n_time)
+                    graph.n_time, graph.time_order, graph.time_off)
                 aux["edge_overflow"].append(false)
                 aux["node_overflow"].append(false)
                 aux["num_nodes"].append(n_nodes)
@@ -512,32 +511,28 @@ class TRedGNN(nn.Module):
 
     def _dense_hop(self, state, rela, a1_k, a2_k, rels, times, tsrc, trel,
                    ttime, ttail, tail_rowptr, tsrc_order, rowptr, excl_keep,
-                   drop_gen, edrop_gen, tail_items, n_time):
+                   drop_gen, edrop_gen, tail_items, n_time, time_order=None,
+                   time_off=None):
         """One hop over the whole tail-sorted edge table, shared by the
         batch (saturated-frontier regime; `temporal.py:461-572`): the
-        sparse hop's math with edge metadata read in order, one packed
-        (d+1)-wide row gather per edge for the batch, and aggregation over
-        the static per-tail ranges. The gather's backward sums each
-        source's edges through ``tsrc_order`` and the CSR's ``rowptr``
-        (`gather_rows_listed`: the list-sum kernel on a CUDA device, which
-        raises without them).
-
-        When no gradient can flow (`ops.dense_hop.grad_free`) the hop is
-        `_dense_hop_fused`; otherwise `_dense_hop_autograd`."""
-        if grad_free(state[0], *self.parameters()):
-            return self._dense_hop_fused(
-                state, rela, a1_k, a2_k, rels, times, tsrc, trel, ttime,
-                ttail, tail_rowptr, excl_keep, drop_gen, edrop_gen,
-                tail_items, n_time)
-        return self._dense_hop_autograd(
+        sparse hop's math with edge metadata read in order and aggregation
+        over the static per-tail ranges, as `_dense_hop_fused`, gradients
+        on or off. Its backward sums the state's gradient by source
+        through ``tsrc_order`` and the CSR's ``rowptr`` and the time
+        term's by time id through ``time_order`` and ``time_off`` (the
+        graph's lists: the list-sum kernel on a CUDA device needs them)."""
+        return self._dense_hop_fused(
             state, rela, a1_k, a2_k, rels, times, tsrc, trel, ttime, ttail,
-            tail_rowptr, tsrc_order, rowptr, excl_keep, drop_gen, edrop_gen)
+            tail_rowptr, excl_keep, drop_gen, edrop_gen, tail_items, n_time,
+            tsrc_order, rowptr, time_order, time_off)
 
     def _dense_hop_autograd(self, state, rela, a1_k, a2_k, rels, times, tsrc,
                             trel, ttime, ttail, tail_rowptr, tsrc_order,
                             rowptr, excl_keep, drop_gen, edrop_gen):
-        """`_dense_hop` through autograd-able tensor ops (the route that
-        training takes)."""
+        """`_dense_hop` through autograd-able tensor ops: the old route,
+        which no model path calls. It stays as the yardstick that
+        chip_smoke.py times the fused hop against (phases 7i and 7j) and
+        as a float64 referee in tests."""
         cfg = self.cfg
         hidden_dense, visited = state
         d = cfg.hidden_dim
@@ -632,10 +627,14 @@ class TRedGNN(nn.Module):
 
     def _dense_hop_fused(self, state, rela, a1_k, a2_k, rels, times, tsrc,
                          trel, ttime, ttail, tail_rowptr, excl_keep,
-                         drop_gen, edrop_gen, tail_items, n_time):
-        """`_dense_hop` as `ops.dense_hop.dense_hop_temporal`: one kernel on
-        a CUDA device (``tail_items``: the graph's work plan of it), its
-        plain version on the CPU. The time term is computed once per (time
+                         drop_gen, edrop_gen, tail_items, n_time,
+                         tsrc_order=None, rowptr=None, time_order=None,
+                         time_off=None):
+        """`_dense_hop` as `ops.dense_hop.dense_hop_temporal_fn`: one
+        forward kernel on a CUDA device (``tail_items``: the graph's work
+        plan of it) and, when a gradient flows, one backward kernel (its
+        sums by source and time id through the graph's lists); their plain
+        versions on the CPU. The time term is computed once per (time
         id, query) over the graph's ``n_time`` time ids and the
         attention's relation and query terms once each
         (`ops.dense_hop.temporal_terms`). The dropout
@@ -672,9 +671,10 @@ class TRedGNN(nn.Module):
                 if linear else None)
         bdir = (None if linear else
                 torch.stack([getattr(self, f"{k}_bias") for k in names]))
-        h, new_visited, n_nodes, n_edges = dense_hop_temporal(
+        h, new_visited, n_nodes, n_edges = dense_hop_temporal_fn(
             hidden_dense, visited, rela, tsrc, trel, ttime, ttail,
             tail_rowptr, times.to(torch.int32), excl_keep, edge_keep, tt, ra,
             qa, a1_k[:d], a2_k, wdir, bdir, drop_keep, cfg.dropout, cfg.act,
-            cfg.dense_agg, tail_items)
+            cfg.dense_agg, tail_items, tsrc_order, rowptr, time_order,
+            time_off)
         return (h, new_visited), n_nodes, n_edges

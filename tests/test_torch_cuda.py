@@ -553,13 +553,14 @@ def test_list_sum_kernel_in_a_cuda_graph(card):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_dense_hop_backward_launches_list_sum(card, dtype):
-    """RelAttnLayer.dense on the card takes the packed rows' gradient
-    through the list-sum kernel (one launch a backward), in float32 and
-    bf16; the dense states' gradient lies within rtol 1e-4 + 1e-5·max of
-    the CPU's (bf16: 2e-2·max, as the bf16 step's gradients are held, since
-    a float32 difference upstream may flip a bf16 cotangent's rounding).
-    Without the graph's list it raises."""
+    """RelAttnLayer.dense on the card takes the state's gradient through
+    the dense hop's backward kernel and the list-sum kernel (one launch
+    each a backward), in float32 and bf16; the dense states' gradient lies
+    within rtol 1e-4 + 1e-5·max of the CPU's (bf16: 2e-2·max, as the bf16
+    step's gradients are held, since a float32 difference upstream may
+    flip a bf16 rounding). Without the graph's list it raises."""
     from redgnn_tpu_torch.models.layers import RelAttnLayer
+    from redgnn_tpu_torch.ops import dense_hop as dh
     from redgnn_tpu_torch.ops import gather
 
     rng = np.random.default_rng(24)
@@ -578,13 +579,15 @@ def test_dense_hop_backward_launches_list_sum(card, dtype):
         g = DeviceGraph.from_csr(*csr, n_ent, device=dev)
         lay = layer.to(dev)
         h = hd.to(dev, copy=True).requires_grad_()
-        before = gather.list_sum.launches
+        before = gather.list_sum.launches, dh.dense_hop_static_bwd.launches
         out, _, _ = lay.dense(h, vis.to(dev), q_rel.to(dev), g.tsrc, g.trel,
                               g.ttail, g.tail_rowptr, "sorted_scatter",
-                              g.tsrc_order, g.rowptr)
+                              g.tsrc_order, g.rowptr, g.tail_items)
         (out * w.to(dev)).sum().backward()
         torch.cuda.synchronize()
-        assert gather.list_sum.launches == before + (dev != "cpu")
+        assert (gather.list_sum.launches,
+                dh.dense_hop_static_bwd.launches) == tuple(
+                    x + (dev != "cpu") for x in before)
         grads.append(h.grad.cpu())
         if dev != "cpu":
             with pytest.raises(ValueError, match="tsrc_order"):
@@ -832,7 +835,10 @@ def test_bf16_train_step_on_card_matches_cpu(card, tmp_path, settings):
     batch within 1e-3 of the row's largest |score|, one step's loss rtol
     1e-4 and gradients within 2e-2 of each parameter's largest (the
     bounds of tests/test_torch_bf16.py); the kernel launched once a sort
-    hop, and the card's bf16 scores within 5e-2 of its float32 ones."""
+    hop, the dense hops' backward kernel where they run, and the card's
+    bf16 scores within 5e-2 of its float32 ones."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
     d = _write_kg(tmp_path, np.random.default_rng(0))
     out = {}
     for dev, dtype in (("cpu", "bfloat16"), ("cuda", "bfloat16"),
@@ -845,11 +851,15 @@ def test_bf16_train_step_on_card_matches_cpu(card, tmp_path, settings):
                                 device=dev)
         qmask = torch.ones(b, dtype=torch.bool, device=dev)
         before = segment_sum_sorted_checked.launches
+        bwd = dh.dense_hop_static_bwd.launches
         scores, _ = tr.model(tr.kg.graph, batch[:, 0], batch[:, 1], qmask,
                              tr.train_caps)
         launched = segment_sum_sorted_checked.launches - before
         loss = softmax_ce_loss(scores, batch[:, 2], qmask)
         grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+        # the dense hops' gradients through the backward kernel
+        assert (dh.dense_hop_static_bwd.launches > bwd) == (
+            dev == "cuda" and settings["dense_hops"])
         out[dev, dtype] = (scores.detach().cpu(), loss.item(),
                            [g.cpu() for g in grads], launched)
     (s_c, l_c, g_c, n_c), (s_g, l_g, g_g, n_g) = (
@@ -953,8 +963,9 @@ def test_registry_default_step_on_card_matches_cpu(card, tmp_path,
         scores, aux = tr.model(tr.kg.graph, batch[:, 0], batch[:, 1], qmask,
                                tr.train_caps)
         launched = segment_sum_sorted_checked.launches - before
-        # 2 sparse hops + 2 launches for the dense hop, through the kernel
-        assert launched == (4 if (dev, segment_impl) == ("cuda", "pallas")
+        # 2 sparse hops through the kernel; the dense hop takes the dense
+        # hop kernels, gradients on or off
+        assert launched == (2 if (dev, segment_impl) == ("cuda", "pallas")
                             else 0)
         loss = softmax_ce_loss(scores, batch[:, 2], qmask)
         before = range_sum.launches
@@ -1033,6 +1044,7 @@ def test_temporal_kernel_path_on_card_matches_cpu(card, tmp_path, mode):
         TRedGNN,
         temporal_hop_plan,
     )
+    from redgnn_tpu_torch.ops import dense_hop as dh
     from redgnn_tpu_torch.train.temporal_loop import (
         exact_caps,
         nll_softmax_loss,
@@ -1054,7 +1066,9 @@ def test_temporal_kernel_path_on_card_matches_cpu(card, tmp_path, mode):
     quads = kg.splits["train"][:8]
     caps = exact_caps(kg, tcfg, quads, 8)
     plan = temporal_hop_plan(cfg, kg.graph.n_edges, caps, 8, True)
-    launches = len(plan) + plan.count("dense")
+    # the sparse hops; a dense hop takes the dense hop kernels, forward
+    # and backward
+    launches = len(plan) - plan.count("dense")
     if not ex:
         assert plan[0] == "sort" and "dense" in plan, plan
     out = {}
@@ -1077,9 +1091,12 @@ def test_temporal_kernel_path_on_card_matches_cpu(card, tmp_path, mode):
             weights = {k: v.clone() for k, v in model.state_dict().items()}
         model.load_state_dict(weights)
         before = segment_sum_sorted_checked.launches
+        bwd = dh.dense_hop_temporal_bwd.launches
         scores, aux = step(model, dev)
         if dev == "cuda":
             assert segment_sum_sorted_checked.launches - before == launches
+            assert dh.dense_hop_temporal_bwd.launches - bwd == \
+                plan.count("dense")
         out[dev] = (scores.detach().cpu(),
                     {k: v.cpu() for k, v in aux.items()},
                     {n: p.grad.cpu() for n, p in model.named_parameters()
@@ -1230,13 +1247,9 @@ DENSE_STATIC_CASES = [
     (300, 20, 64, 5, 60_000, "zipf", 0.5)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", DENSE_STATIC_CASES)
-def test_dense_hop_static_kernel(card, case, dtype):
-    """csrc/dense_hop_static.cu against a float64 referee on its own
-    inputs (`_dense_bound`); new visited set and live count equal to the
-    plain version's; the same bits on a second call; both launches
-    counted."""
+def _static_hop_inputs(card, case, dtype):
+    """`dense_hop_static`'s inputs (but its plan) for a case of
+    DENSE_STATIC_CASES, seeded by its width."""
     from redgnn_tpu_torch.ops import dense_hop as dh
 
     n, b, d, a, e, hub, share = case
@@ -1254,8 +1267,23 @@ def test_dense_hop_static_kernel(card, case, dtype):
     ws, wr_w, wq_w = (rand(a, d) * 0.3 for _ in range(3))
     wr, wq = dh.static_terms(inp["rela"], q_rel, wr_w, wq_w, rand(a))
     inp.update(wr=wr, wq=wq, ws=ws, w_alpha=rand(a), b_alpha=rand(1))
+    return inp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DENSE_STATIC_CASES)
+def test_dense_hop_static_kernel(card, case, dtype):
+    """csrc/dense_hop_static.cu against a float64 referee on its own
+    inputs (`_dense_bound`); new visited set and live count equal to the
+    plain version's; the same bits on a second call; both launches
+    counted."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    inp = _static_hop_inputs(card, case, dtype)
+    n, ttail = inp["hidden"].shape[0], inp["ttail"]
     before = dh.dense_hop_static.launches
-    plan = dict(dense_agg="sorted_scatter", item_ptr=dh.tail_items(rowptr))
+    plan = dict(dense_agg="sorted_scatter",
+                item_ptr=dh.tail_items(inp["tail_rowptr"]))
     got = dh.dense_hop_static(**inp, **plan)
     again = dh.dense_hop_static(**inp, **plan)
     torch.cuda.synchronize()
@@ -1317,14 +1345,9 @@ DENSE_TEMPORAL_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(DENSE_TEMPORAL_CASES))
-def test_dense_hop_temporal_kernel(card, case):
-    """csrc/dense_hop_temporal.cu against a float64 referee on its own
-    inputs: the sum within `_dense_bound` before the epilogue, which each
-    activation passes on at most 1-Lipschitz (dropout scales it by
-    1 / (1 - p)); new visited set and both counts equal to the plain
-    version's; the same bits on a second call; both launches counted.
-    ``masks``: the leave-one-out, edge-dropout and dropout masks."""
+def _temporal_hop_inputs(card, case):
+    """`dense_hop_temporal`'s inputs (but its plan) for a case of
+    DENSE_TEMPORAL_CASES, seeded by its batch."""
     from redgnn_tpu_torch.ops import dense_hop as dh
 
     n, b, d, a, e, hub, use_time, attn, linear, masks, act, share = \
@@ -1343,19 +1366,35 @@ def test_dense_hop_temporal_kernel(card, case):
         rela, a1, ints(r, b), times, t_ids,
         rand(48) * 0.01 if use_time else None, rand(96, d) * 0.1,
         rand(d) * 0.1, use_attention=attn)
-    p = 0.1
     keep = lambda *s: torch.from_numpy(  # noqa: E731
         rng.random(s) < 0.9).to(card) if masks else None
-    inp = dict(hidden=rand(n, b, d) * vis[..., None], visited=vis,
-               rela=rela, tsrc=tsrc, trel=ints(r, e), ttime=ints(t_ids, e),
-               ttail=ttail, tail_rowptr=rowptr, times=times,
-               excl_keep=keep(e), edge_keep=keep(e, b), tt=tt, ra=ra, qa=qa,
-               a1s=a1[:d], a2=rand(a, 1) * 0.3,
-               wdir=rand(3, d, d) * 0.3 if linear else None,
-               bdir=None if linear else rand(3, d), drop_keep=keep(n, b, d),
-               dropout=p, act=act)
+    return dict(hidden=rand(n, b, d) * vis[..., None], visited=vis,
+                rela=rela, tsrc=tsrc, trel=ints(r, e), ttime=ints(t_ids, e),
+                ttail=ttail, tail_rowptr=rowptr, times=times,
+                excl_keep=keep(e), edge_keep=keep(e, b), tt=tt, ra=ra,
+                qa=qa, a1s=a1[:d], a2=rand(a, 1) * 0.3,
+                wdir=rand(3, d, d) * 0.3 if linear else None,
+                bdir=None if linear else rand(3, d), drop_keep=keep(n, b, d),
+                dropout=0.1, act=act)
+
+
+@pytest.mark.parametrize("case", list(DENSE_TEMPORAL_CASES))
+def test_dense_hop_temporal_kernel(card, case):
+    """csrc/dense_hop_temporal.cu against a float64 referee on its own
+    inputs: the sum within `_dense_bound` before the epilogue, which each
+    activation passes on at most 1-Lipschitz (dropout scales it by
+    1 / (1 - p)); new visited set and both counts equal to the plain
+    version's; the same bits on a second call; both launches counted.
+    ``masks``: the leave-one-out, edge-dropout and dropout masks."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    inp = _temporal_hop_inputs(card, case)
+    n, ttail, masks = inp["hidden"].shape[0], inp["ttail"], \
+        DENSE_TEMPORAL_CASES[case][9]
+    p = inp["dropout"]
     before = dh.dense_hop_temporal.launches
-    plan = dict(dense_agg="sorted_scatter", item_ptr=dh.tail_items(rowptr))
+    plan = dict(dense_agg="sorted_scatter",
+                item_ptr=dh.tail_items(inp["tail_rowptr"]))
     got = dh.dense_hop_temporal(**inp, **plan)
     again = dh.dense_hop_temporal(**inp, **plan)
     torch.cuda.synchronize()
@@ -1373,6 +1412,114 @@ def test_dense_hop_temporal_kernel(card, case):
     want = dh.dense_hop_temporal_plain(**ref)[0]
     _dense_bound(got[0], want, s_abs + 4 * U * want.abs(), ttail, n,
                  plain[0])
+
+
+# ----------------------------------------- the dense hop's backward kernels
+
+def _lists(tsrc, ttime, n, n_time):
+    """The graph's lists the backward sums by: (tsrc_order, the sources'
+    row offsets, time_order, time_off)."""
+    from redgnn_tpu_torch.graph.kg import build_src_order, build_time_order
+
+    dev = tsrc.device
+    src = tsrc.cpu().numpy()
+    off = np.zeros(n + 1, np.int32)
+    np.cumsum(np.bincount(src, minlength=n), out=off[1:])
+    lists = [build_src_order(src), off]
+    if ttime is not None:
+        lists += build_time_order(ttime.cpu().numpy(), n_time)
+    return [torch.from_numpy(x).to(dev) for x in lists]
+
+
+def _bwd_check(kind, plain_args, got, m):
+    """The backward kernel's gradients ``got`` against the float64 plain
+    backward on the same inputs within `bwd_bound` (the float32 plain
+    backward's own error allowed twice, and the whole of every attention
+    term whose relu mask float32 may flip; the parameters' sums at the
+    kernel's chain of additions, ``m``, and at their scale). Returns the
+    bound's share."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    plain = getattr(dh, f"dense_hop_{kind}_bwd_plain")
+    want32 = plain(**plain_args)
+    ref = {k: _f64(v) for k, v in plain_args.items()}
+    want = plain(**ref)
+    s_abs = plain(**ref, absolute=True)
+    kinks = plain(**ref, kinks=True)
+    shares = dh.bwd_shares(got, want, s_abs, m, want32, kinks)
+    share = max(x for x in shares if x is not None)
+    assert share <= 1.0, shares
+    return share
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DENSE_STATIC_CASES)
+def test_dense_hop_static_bwd_kernel(card, case, dtype):
+    """csrc/dense_hop_static_bwd.cu (and the list and scatter sums it
+    feeds) at every forward case: each gradient against the float64 plain
+    backward on the same inputs within `bwd_bound` (bf16 tables: the
+    referee promotes the same bf16 rows); the same bits on a second call;
+    both launches counted."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    inp = _static_hop_inputs(card, case, dtype)
+    n, b, d = inp["hidden"].shape
+    g = torch.randn(n, b, d, device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+    order, off = _lists(inp["tsrc"], None, n, None)
+    args = dict(g=g, **inp)
+    before = dh.dense_hop_static_bwd.launches
+    kw = dict(item_ptr=dh.tail_items(inp["tail_rowptr"]), tsrc_order=order,
+              rowptr=off)
+    got = dh.dense_hop_static_bwd(**args, **kw)
+    again = dh.dense_hop_static_bwd(**args, **kw)
+    torch.cuda.synchronize()
+    assert dh.dense_hop_static_bwd.launches == before + 2 * (
+        inp["tsrc"].shape[0] > 0)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    del args["tail_rowptr"]
+    m = dh.bwd_term_counts("static", inp["tsrc"], inp["trel"], None, b, n,
+                           inp["rela"].shape[0], None,
+                           dh.dense_hop_static_bwd.plan)
+    _bwd_check("static", args, got, m)
+
+
+@pytest.mark.parametrize("case", list(DENSE_TEMPORAL_CASES))
+def test_dense_hop_temporal_bwd_kernel(card, case):
+    """csrc/dense_hop_temporal_bwd.cu (and the list and scatter sums it
+    feeds) at every forward case (ICEWS14's sizes, every ablation, b > 32,
+    widths 48 and 64): each gradient against the float64 plain backward
+    on the same inputs (h the forward kernel's output) within
+    `bwd_bound`; the same bits on a second call; both launches
+    counted."""
+    from redgnn_tpu_torch.ops import dense_hop as dh
+
+    inp = _temporal_hop_inputs(card, case)
+    n, b, d = inp["hidden"].shape
+    plan = dict(dense_agg="sorted_scatter",
+                item_ptr=dh.tail_items(inp["tail_rowptr"]))
+    h, new_visited, _, _ = dh.dense_hop_temporal(**inp, **plan)
+    g_h = torch.randn(n, b, d, device=card,
+                      generator=torch.Generator(device=card).manual_seed(2))
+    n_time = 365
+    order, off, t_order, t_off = _lists(inp["tsrc"], inp["ttime"], n,
+                                        n_time)
+    args = dict(g_h=g_h, h=h, new_visited=new_visited, **inp)
+    kw = dict(item_ptr=plan["item_ptr"], tsrc_order=order, rowptr=off,
+              time_order=t_order, time_off=t_off)
+    before = dh.dense_hop_temporal_bwd.launches
+    got = dh.dense_hop_temporal_bwd(**args, **kw)
+    again = dh.dense_hop_temporal_bwd(**args, **kw)
+    torch.cuda.synchronize()
+    assert dh.dense_hop_temporal_bwd.launches == before + 2 * (
+        inp["tsrc"].shape[0] > 0)
+    assert all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(got, again))
+    del args["tail_rowptr"]
+    m = dh.bwd_term_counts("temporal", inp["tsrc"], inp["trel"],
+                           inp["ttime"], b, n, inp["rela"].shape[0], n_time,
+                           dh.dense_hop_temporal_bwd.plan)
+    _bwd_check("temporal", args, got, m)
 
 
 def test_dense_hop_kernels_refuse_before_launching(card):
@@ -1464,10 +1611,80 @@ def test_temporal_evaluation_at_search_widths(card, tmp_path, hidden_dim,
         assert abs(g[k] - c[k]) <= 1.0 / c["n"] + 1e-9, (k, g[k], c[k])
 
 
+@pytest.mark.parametrize("hidden_dim", [48, 64])
+def test_temporal_train_step_at_search_widths(card, tmp_path, hidden_dim):
+    """One interpolation train step's gradients (dropout off, leave-one-out
+    on) at the interpolation search's widest hidden width and the widest
+    the kernels take, attention width 40: its dense hops launch both
+    dense hop kernels, and every gradient lies within rtol 1e-4 +
+    1e-5·max of the CPU's (the plain versions), the loss within 1e-5."""
+    from redgnn_tpu_torch.graph.temporal import TemporalKG
+    from redgnn_tpu_torch.models.temporal import (
+        TemporalModelConfig,
+        TRedGNN,
+        temporal_hop_plan,
+    )
+    from redgnn_tpu_torch.ops import dense_hop as dh
+    from redgnn_tpu_torch.train.temporal_loop import (
+        exact_caps,
+        nll_softmax_loss,
+    )
+    from redgnn_tpu_torch.utils.config import TemporalTrainConfig
+
+    d = _write_temporal(tmp_path, np.random.default_rng(hidden_dim))
+    kgs = {dev: TemporalKG.load_vocab_dir(d, device=dev)
+           for dev in ("cpu", "cuda")}
+    kg = kgs["cpu"]
+    cfg = TemporalModelConfig(
+        n_ent=kg.n_ent, n_rel_vocab=kg.n_rel + 1, idd_rel=kg.idd_rel,
+        hidden_dim=hidden_dim, attn_dim=40, n_layer=3, dropout=0.0,
+        time_key_base=kg.time_key_base, dense_switch=0.2)
+    quads = kg.splits["train"][:16]
+    caps = exact_caps(kg, TemporalTrainConfig(hidden_dim=hidden_dim,
+                                              n_layer=3, batch_size=16),
+                      quads, 16)
+    plan = temporal_hop_plan(cfg, kg.graph.n_edges, caps, 16, True)
+    assert plan[0] != "dense" and "dense" in plan, plan
+    out, weights = {}, None
+    for dev in ("cpu", "cuda"):
+        g = kgs[dev]
+        model = TRedGNN(cfg, device=dev)
+        if weights is None:
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        b = [torch.as_tensor(quads[:, j].astype(np.int32), device=dev)
+             for j in range(4)]
+        qmask = torch.ones(16, dtype=torch.bool, device=dev)
+        graph, etime, ekey, sl, trp, dense = g.model_args()
+        excl = torch.as_tensor(g.exclusion_slots(np.arange(16)),
+                               device=dev)
+        before = (dh.dense_hop_temporal.launches,
+                  dh.dense_hop_temporal_bwd.launches)
+        scores, _ = model(graph, etime, b[0], b[1], b[3], qmask, caps, excl,
+                          False, ekey, sl, trp, dense)
+        loss = nll_softmax_loss(scores, b[2], qmask)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (dh.dense_hop_temporal.launches - before[0],
+                    dh.dense_hop_temporal_bwd.launches - before[1])
+        assert (min(launched) > 0) == (dev == "cuda"), launched
+        out[dev] = (loss.item(), {n: p.grad.cpu() for n, p in
+                                  model.named_parameters()
+                                  if p.grad is not None})
+    (l_c, g_c), (l_g, g_g) = out["cpu"], out["cuda"]
+    assert l_g == pytest.approx(l_c, rel=1e-5)
+    assert g_g.keys() == g_c.keys()
+    for name, want in g_c.items():
+        torch.testing.assert_close(g_g[name], want, rtol=1e-4,
+                                   atol=1e-5 * float(want.abs().max()),
+                                   msg=name)
+
+
 def test_model_dense_hops_launch_the_kernels(card):
     """With gradients off every dense hop of RedGNN.forward launches the
     static kernel (float32 and bf16) and the scores match the CPU's plain
-    route; with gradients on none does (the autograd route)."""
+    route; with gradients on each launches it again, and its backward
+    kernel once."""
     from redgnn_tpu_torch.ops import dense_hop as dh
 
     rng = np.random.default_rng(5)
@@ -1495,8 +1712,10 @@ def test_model_dense_hops_launch_the_kernels(card):
                 scores[str(dev)], _ = model(*args)
             launched = dh.dense_hop_static.launches - before
             assert launched == (2 if str(dev) == "cuda" else 0), launched
+        bwd = dh.dense_hop_static_bwd.launches
         model(*args)[0].sum().backward()
-        assert dh.dense_hop_static.launches - before == 2
+        assert dh.dense_hop_static.launches - before == 4
+        assert dh.dense_hop_static_bwd.launches - bwd == 2
         tol = 1e-5 if dtype == "float32" else 1e-3
         torch.testing.assert_close(
             scores["cuda"].cpu(), scores["cpu"], rtol=0,

@@ -113,6 +113,19 @@ def test_tail_items_plan(degrees):
     assert got[-1] <= len(deg) + deg.sum() // c
 
 
+def test_time_term_needs_the_graphs_time_count():
+    """A time term without ``n_time`` (a graph built without its count of
+    time ids) raises a ValueError that says so, periodic or absolute."""
+    rela, a1 = torch.zeros(3, 4), torch.zeros(12, 5)
+    rels, times = torch.zeros(2, dtype=torch.int32), torch.zeros(2)
+    for kw in (dict(time_freq=torch.zeros(2), time_w=torch.zeros(4, 4),
+                    time_b=torch.zeros(4)),
+               dict(time_abs=torch.zeros(7, 4))):
+        with pytest.raises(ValueError, match="n_time"):
+            dh.temporal_terms(rela, a1, rels, times, None, **kw)
+    assert dh.temporal_terms(rela, a1, rels, times, None)[2] is None
+
+
 def test_graphs_carry_the_plans(vocab_dir, rng):
     """A DeviceGraph given a tail-sorted view builds its `tail_items`;
     the temporal graph keeps its own and the count of time ids, past
@@ -214,11 +227,35 @@ def test_static_plain_sums_agree(rng, static_params):
             tl.dense(*args, "segment")
 
 
-def test_grad_free_rule(rng, static_params, fused_calls):
-    """The fused route runs with gradients off, or on when nothing the hop
-    reads requires one; with a parameter or the state requiring a
-    gradient the autograd route runs, and its output differs from the
-    fused one by float32 rounding only."""
+def old_route(mp):
+    """Sends the models' dense hops to the old autograd route
+    (``dense_autograd``, ``_dense_hop_autograd``) through ``mp``, a
+    monkeypatch context."""
+    def static(self, h, vis, q_rel, tsrc, trel, ttail, rowptr_t,
+               dense_agg="sorted_scatter", order=None, rowptr=None,
+               items=None):
+        return self.dense_autograd(h, vis, q_rel, tsrc, trel, ttail,
+                                   rowptr_t, dense_agg, order, rowptr)
+
+    def temporal(self, state, rela, a1, a2, rels, times, tsrc, trel, ttime,
+                 ttail, rowptr_t, order, rowptr, excl, drop_gen, edrop_gen,
+                 *_):
+        return self._dense_hop_autograd(state, rela, a1, a2, rels, times,
+                                        tsrc, trel, ttime, ttail, rowptr_t,
+                                        order, rowptr, excl, drop_gen,
+                                        edrop_gen)
+
+    mp.setattr(tlayers.RelAttnLayer, "dense", static)
+    mp.setattr(ttm.TRedGNN, "_dense_hop", temporal)
+
+
+def test_grad_free_rule(rng, static_params, fused_calls, monkeypatch):
+    """The fused route runs whatever the gradient mode: with gradients off
+    or on, and whether the parameters or the state require one. Its
+    output is the same bits either way; with gradients on it requires a
+    gradient, and the gradients it gives (through the plain backward here)
+    match autograd of the old route's within TOL of each one's
+    largest."""
     csr, vis, hd, q_rel = static_case(rng)
     tl = port_layer(static_params)
     g = DeviceGraph.from_csr(*csr, N_ENT, device="cpu")
@@ -233,17 +270,25 @@ def test_grad_free_rule(rng, static_params, fused_calls):
     with torch.inference_mode():
         fused = run(h)
     assert fused_calls["static"] == 1
-    autograd = run(h)                       # parameters require grad
-    assert fused_calls["static"] == 1 and autograd[0].requires_grad
+    state = h.clone().requires_grad_()
+    on = run(state)                         # parameters and state: grad
+    assert fused_calls["static"] == 2 and on[0].requires_grad
+    assert torch.equal(on[0].detach(), fused[0])
+    assert torch.equal(on[1], fused[1])
+    w = torch.from_numpy(rng.normal(size=hd.shape).astype(np.float32))
+    params = [state] + list(tl.parameters())
+    got = torch.autograd.grad((on[0] * w).sum(), params)
+    with monkeypatch.context() as mp:
+        old_route(mp)
+        old = run(state)
+    assert fused_calls["static"] == 2
+    want = torch.autograd.grad((old[0] * w).sum(), params)
+    for x, y in zip(got, want):
+        rows_close(x.reshape(1, -1).numpy(), y.reshape(1, -1).numpy(), TOL)
     tl.requires_grad_(False)
-    run(h.clone().requires_grad_())          # the state requires grad
-    assert fused_calls["static"] == 1
     again = run(h)                           # nothing requires grad
-    assert fused_calls["static"] == 2 and not again[0].requires_grad
+    assert fused_calls["static"] == 3 and not again[0].requires_grad
     assert torch.equal(again[0], fused[0])
-    rows_close(autograd[0].detach().numpy(), fused[0].numpy(), TOL)
-    assert torch.equal(autograd[1], fused[1])
-    assert dh.grad_free(None) and dh.grad_free(h)
 
 
 # ----------------------------------------------------------- whole models
@@ -269,11 +314,13 @@ def float64_scores(model, fn):
 
 
 @pytest.mark.parametrize("dense_agg", ["sorted_scatter", "cumsum"])
-def test_redgnn_fused_forward_matches_jax(rng, fused_calls, dense_agg):
+def test_redgnn_fused_forward_matches_jax(rng, fused_calls, dense_agg,
+                                         monkeypatch):
     """A umls-like toy at the registry's defaults (bitmap hops, then dense
     hops from dense_switch 0.6) under no_grad: one fused call a dense
-    hop; scores within TOL of the row's largest of JAX's and of the
-    port's autograd route (gradients on); aux counts equal to JAX's. (At
+    hop, and one again with gradients on (the same bits); scores within
+    TOL of the row's largest of JAX's and of the port's old autograd
+    route; aux counts equal to JAX's. (At
     this size JAX's cumsum route is within float32 rounding: the static
     model's sparse hops compute in float32, so it has no float64 run.)"""
     csr = make_csr(rng)
@@ -302,8 +349,13 @@ def test_redgnn_fused_forward_matches_jax(rng, fused_calls, dense_agg):
     with torch.no_grad():
         got, aux = model(*args)
     assert fused_calls["static"] == 2  # two dense hops
-    auto, _ = model(*args)
-    assert auto.requires_grad and fused_calls["static"] == 2
+    on, _ = model(*args)
+    assert on.requires_grad and fused_calls["static"] == 4
+    assert torch.equal(on.detach(), got)
+    with monkeypatch.context() as mp:
+        old_route(mp)
+        auto, _ = model(*args)
+    assert auto.requires_grad and fused_calls["static"] == 4
     rows_close(got.numpy()[:3], np.asarray(want)[:3], TOL)
     rows_close(got.numpy()[:3], auto.detach().numpy()[:3], TOL)
     assert np.all(got.numpy()[3] == 0)
@@ -393,11 +445,12 @@ def test_tredgnn_fused_forward_matches_jax(vocab_dir, rng, fused_calls,
 
 
 def test_tredgnn_fused_draws_the_autograd_routes_masks(vocab_dir, rng,
-                                                       fused_calls):
-    """Training with dropout and edge dropout: the fused route (no_grad)
-    draws the masks the autograd route draws from the same generator, in
-    its order, so the two forwards agree within TOL, visited sets and
-    counts equal."""
+                                                       fused_calls,
+                                                       monkeypatch):
+    """Training with dropout and edge dropout: the fused route draws the
+    masks the old autograd route draws from the same generator, in its
+    order, so the two forwards agree within TOL, visited sets and counts
+    equal; with gradients on the fused route gives the same bits."""
     kg = TemporalKG.load_vocab_dir(vocab_dir, device="cpu")
     jkg = JKG.load_vocab_dir(vocab_dir)
     cfg, batch, caps, excl = model_case(jkg, rng, dropout=0.3,
@@ -417,9 +470,15 @@ def test_tredgnn_fused_draws_the_autograd_routes_masks(vocab_dir, rng,
 
     with torch.no_grad():
         fused, f_aux = run(7)
-    assert fused_calls["temporal"] >= 1
-    auto, a_aux = run(7)
-    assert auto.requires_grad
+    calls = fused_calls["temporal"]
+    assert calls >= 1
+    on, _ = run(7)
+    assert on.requires_grad and fused_calls["temporal"] == 2 * calls
+    assert torch.equal(on.detach(), fused)
+    with monkeypatch.context() as mp:
+        old_route(mp)
+        auto, a_aux = run(7)
+    assert auto.requires_grad and fused_calls["temporal"] == 2 * calls
     rows_close(fused.numpy()[:B - 1], auto.detach().numpy()[:B - 1], TOL)
     for k in ("num_nodes", "num_edges"):
         assert torch.equal(f_aux[k], a_aux[k]), k

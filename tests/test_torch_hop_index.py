@@ -525,7 +525,8 @@ def test_temporal_dense_hop_matches_jax(vocab_dir, rng):
                                  FrontierCaps(*caps), B, True)
     assert plan[0] != "dense" and "dense" in plan, plan
     full = kg.graph
-    bare = tkg.DeviceGraph(full.rowptr, full.rel, full.tail)
+    bare = tkg.DeviceGraph(full.rowptr, full.rel, full.tail,
+                           n_time=full.n_time)
     runs = []
     for graph in (full, bare):
         model.zero_grad(set_to_none=True)

@@ -139,14 +139,20 @@ Phases (any failure raises, and the script exits non-zero):
      their gradients (with the list and scatter sums they feed) against
      the float64 plain backward on the same inputs ((1e-5 + 2(m-1)u)
      sum|x| with every product's factors by absolute value, plus twice
-     the plain float32's own error), bit-equal twice, the kernel timed
-     with L2 warm and flushed beside the bound (bytes or float32 work of
-     the kept pairs), the plain version and the old route's backward;
-     launches counted over the trainers' two epochs (one a dense hop of
-     every step); the kernel at widths 48 and 64 on the last call's
-     table. ``--phase 7j [--tree DIR]`` times 7a's and umls's train steps
-     with their peak memory through DIR's own functions, and runs the
-     kernel checks where DIR has them.
+     the plain float32's own error), every gradient's share of that bound
+     printed (the parameter sums' at the plan's chain and at 1e-4 of
+     their largest), bit-equal twice, the launch plan printed (warps a
+     block, blocks, warps a multiprocessor, tables staged, units an item,
+     chain), the kernel timed with L2 warm and flushed beside the bound
+     (bytes or float32 work of the kept pairs) and the design's floor
+     (its own bytes; the static kernel's products at the TF32 tensor-core
+     rate), the
+     plain version and the old route's backward; launches counted over
+     the trainers' two epochs (one a dense hop of every step); the kernel
+     at widths 48 and 64 on the last call's table. ``--phase 7j [--tree
+     DIR]`` times 7a's and umls's train steps with their peak memory
+     through DIR's own functions, and runs this script's kernel checks on
+     DIR's package where DIR has them.
   8. the xERTE and SimplE baselines on 7c's dir: 8a xERTE at full width
      (emb 256-128-64-32, 3 DP steps, K 15, 40 attended edges, batch 128,
      cap factor 4) with XErteTrainer's seeded init: 8 timed forward
@@ -2527,12 +2533,11 @@ def hop_index_check(trainer, pred, queries, main: dict, steps: int, tag: str,
                 1 + trainer.model_cfg.use_time), (len(lists), n_src)
             log(f"{what} list_sum: {n_src} calls by source, "
                 f"{len(lists) - n_src} by time id")
-        # 7a's train calls by source: the kernel must not be slower than
-        # index_add_
+        # 7a's train calls, by source and by time id: the kernel must not
+        # be slower than index_add_
         out["list_sum"][part] = [
-            list_sum_call_check(*c, what, card,
-                                faster=tag == "[7a]" and src)
-            for c, src in zip(lists, by_src)]
+            list_sum_call_check(*c, what, card, faster=tag == "[7a]")
+            for c in lists]
         for name, calls in (("slot_owner", owners), ("list_sum", lists)):
             out[name][f"launches_per_{part}"] = len(calls)
         if part == "serve":
@@ -3138,6 +3143,15 @@ DENSE_BWD_KERNELS = {
 # plan and the graph's lists)
 BWD_PLAN_ARGS = {"static": (7, 8, 14, 15),
                  "temporal": (10, 11, 25, 26, 27, 28)}
+# the gradients each backward returns, in order (the parameters' sums are
+# the ones after the per-index rows: static from d_wq, temporal from d_qa)
+BWD_GRADS = {"static": ("d_hidden", "d_rela", "d_wr", "d_wq", "d_ws",
+                        "d_w_alpha", "d_b_alpha"),
+             "temporal": ("d_hidden", "d_rela", "d_tt", "d_ra", "d_qa",
+                          "d_a1s", "d_a2", "d_wdir", "d_bdir")}
+BWD_PARAMS = {"static": BWD_GRADS["static"][3:],
+              "temporal": BWD_GRADS["temporal"][4:]}
+TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 
 
 def event_ms(fn, reps: int = 3) -> float:
@@ -3239,6 +3253,37 @@ def dense_bwd_work(kind, args):
     return moved, flops, kept
 
 
+def dense_bwd_floor(kind, args, moved: int):
+    """(bytes, TF32 FLOPs) of the backward kernel's own design, beyond the
+    function's bound: the function's bytes plus the per-pair rows it
+    writes for `list_sum` (d_hs, and d_msg with a time term) and the
+    per-edge rows for `take_rows_grad`; the static kernel's tensor-core
+    products as it runs them (csrc/dense_hop_static_bwd.cuh; 3xTF32: three
+    passes, every tile padded: hidden and attention widths to 8, the
+    hidden rows of d Ws to 16, queries to 32 a group) per (edge, query
+    group) with a kept pair: pre, d_hs and d Ws. The temporal kernel
+    (csrc/dense_hop_bwd.cuh) does its products in float32, the function's
+    own work, which its bound counts: no TF32 FLOPs."""
+    if kind == "static":
+        hidden, vis, tsrc, tt = args[1], args[2], args[4], None
+        a = args[11].shape[0]
+    else:
+        hidden, tsrc, tt = args[3], args[6], args[15]
+        a = 0 if args[16] is None else args[16].shape[1]
+    n, b, d = hidden.shape
+    e, groups = tsrc.shape[0], -(-b // 32)
+    rows = e * b * d * 4 * (1 + (tt is not None)) + groups * e * (d + a) * 4
+    if kind != "static":
+        return moved + rows, 0
+    pad = torch.zeros(e, groups * 32, dtype=torch.bool, device=vis.device)
+    pad[:, :b] = vis[tsrc.long()]
+    steps = int(pad.view(e, groups, 32).any(-1).sum())  # (edge, group) kept
+    kd, ka = -(-d // 8) * 8, (8 if a <= 8 else 32 if a <= 32 else 64)
+    md = -(-d // 16) * 16
+    flops = 3 * steps * (2 * 32 * kd * ka * 2 + 2 * md * ka * 32)
+    return moved + rows, flops
+
+
 def old_route_bwd_ms(kind, hop, graph, g) -> float:
     """The old route's backward: autograd of RelAttnLayer.dense_autograd /
     TRedGNN._dense_hop_autograd on the hop's arguments (its forward built
@@ -3275,9 +3320,10 @@ def bwd_float64_check(kind, args, got, what: str):
     backward on the same inputs (``args``, the wrapper's), within
     `ops.dense_hop.bwd_bound` with its ``kinks`` term, the parameters'
     sums at the chain of additions of the wrapper's last launch (the one
-    that gave ``got``) and at their scale; on failure the worst element of
-    the worst gradient is logged. Returns (the bound's largest share, max
-    |diff| to the float32 plain backward)."""
+    that gave ``got``) and at their scale; each gradient's share is
+    logged, and on failure the worst element of the worst gradient.
+    Returns (the bound's largest share, max |diff| to the float32 plain
+    backward, {gradient: share})."""
     from redgnn_tpu_torch.ops import dense_hop as dh
 
     plan = getattr(dh, f"dense_hop_{kind}_bwd").plan
@@ -3303,6 +3349,12 @@ def bwd_float64_check(kind, args, got, what: str):
                                else args[15].shape[0], plan)
     shares = dh.bwd_shares(got, want, s_abs, m, want32, kinks)
     share = max(x for x in shares if x is not None)
+    named = {k: x for k, x in zip(BWD_GRADS[kind], shares) if x is not None}
+    chain = None if plan is None else plan["chain"]
+    log(f"{what} 7j {kind} backward: share of the float64 bound by "
+        f"gradient (parameter sums at chain {chain} and at "
+        f"{dh.BWD_SCALE:g} of their largest): "
+        + ", ".join(f"{k} {x:.3g}" for k, x in named.items()))
     if share > 1.0:  # the worst element of the worst gradient, then fail
         i = max((k for k, x in enumerate(shares) if x is not None),
                 key=lambda k: shares[k])
@@ -3313,7 +3365,7 @@ def bwd_float64_check(kind, args, got, what: str):
             f", float64 {float(w.flatten()[j])}, float32 plain "
             f"{float(p.flatten()[j])}, sum|x| {float(sa.flatten()[j])}")
     assert share <= 1.0, (what, shares)
-    return share, err
+    return share, err, named
 
 
 def dense_bwd_call_check(kind, hop, args, graph, what: str, card):
@@ -3326,7 +3378,9 @@ def dense_bwd_call_check(kind, hop, args, graph, what: str, card):
     kernel's device time with L2 warm and flushed, the whole backward
     wrapper's and the plain version's (CUDA events), the old route's
     backward (library_ms: no single PyTorch call computes it), beside the
-    bound. Returns the row."""
+    bound (the function's: its bytes or its float32 work) and the design's
+    floor (`dense_bwd_floor`: its own bytes, its products at the TF32
+    tensor-core rate); the launch plan. Returns the row."""
     from redgnn_tpu_torch.ops import dense_hop as dh
 
     wrapper = getattr(dh, f"dense_hop_{kind}_bwd")
@@ -3336,7 +3390,15 @@ def dense_bwd_call_check(kind, hop, args, graph, what: str, card):
     torch.cuda.synchronize()
     assert all(x is None and y is None or torch.equal(x, y)
                for x, y in zip(got, again)), "two calls gave different bits"
-    share, err = bwd_float64_check(kind, args, got, what)
+    plan = dict(wrapper.plan)
+    share, err, shares = bwd_float64_check(kind, args, got, what)
+    tables = ("not planned" if "tables" not in plan
+              else "staged" if plan["tables"] else "global")
+    log(f"{what} 7j {kind} backward plan: {plan['warps']} warps a block, "
+        f"{plan['blocks_x']} blocks a query group, "
+        f"{plan.get('per_sm', 'not planned')} warps a multiprocessor, "
+        f"relation tables {tables}, {plan.get('split', 1)} units an item, "
+        f"chain {plan['chain']}")
     n, b, d = (args[1] if kind == "static" else args[3]).shape
     # the kernel alone: its C entry through the wrapper with the list and
     # scatter sums left out
@@ -3348,6 +3410,9 @@ def dense_bwd_call_check(kind, hop, args, graph, what: str, card):
     b_bytes = moved / HBM_BYTES_PER_S * 1e3
     b_ops = flops / FP32_FLOPS_PER_S * 1e3
     b_ms, by = max((b_bytes, "bytes"), (b_ops, "operations"))
+    f_bytes, f_flops = dense_bwd_floor(kind, args, moved)
+    f_ms, f_by = max((f_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                     (f_flops / TF32_FLOPS_PER_S * 1e3, "TF32 operations"))
     e = int(args[4 if kind == "static" else 6].shape[0])
     log(f"{what} 7j {kind} backward N={n} b={b} d={d} E={e}: {kept} kept "
         f"(edge, query) pairs; gradients at most {share:.3g} of the float64 "
@@ -3356,13 +3421,18 @@ def dense_bwd_call_check(kind, hop, args, graph, what: str, card):
         f"flushed; with its list and scatter sums {t_all:.4f} ms; plain "
         f"{t_p:.4f} ms; old route's backward {t_old:.4f} ms (CUDA events); "
         f"bound {b_ms * 1e3:.2f} us by {by} ({moved / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP) = {b_ms / t_k:.1%} of the kernel's time "
-        f"({card})")
+        f"{flops / 1e9:.2f} GFLOP) = {b_ms / t_k:.1%} of the kernel's time; "
+        f"the design's floor {f_ms * 1e3:.2f} us by {f_by} "
+        f"({f_bytes / 1e6:.1f} MB, {f_flops / 1e9:.2f} TF32 GFLOP); the "
+        f"larger {max(b_ms, f_ms) * 1e3:.2f} us = "
+        f"{max(b_ms, f_ms) / t_k:.1%} of the kernel's time ({card})")
     return {"kind": kind, "N": n, "b": b, "d": d, "E": e, "kept": kept,
-            "max_abs_err": err, "bound_share": share, "ms": t_k,
-            "ms_l2_flushed": t_f, "with_sums_ms": t_all, "plain_ms": t_p,
-            "old_route_ms": t_old, "bound_ms": b_ms, "bound_by": by,
-            "bytes": moved, "flops": flops}
+            "max_abs_err": err, "bound_share": share, "shares": shares,
+            "plan": plan, "ms": t_k, "ms_l2_flushed": t_f,
+            "with_sums_ms": t_all, "plain_ms": t_p, "old_route_ms": t_old,
+            "bound_ms": b_ms, "bound_by": by, "floor_ms": f_ms,
+            "floor_by": f_by, "bytes": moved, "flops": flops,
+            "floor_bytes": f_bytes, "floor_flops": f_flops}
 
 
 def kernel_only_ms(kind, args, flushed: bool = True):
@@ -3438,11 +3508,13 @@ def dense_bwd_widths(kind, args, tag: str, card):
         assert all(x is None and y is None or torch.equal(x, y)
                    for x, y in zip(got, again)), d
         share = bwd_float64_check(kind, run, got, f"{tag} width {d}")[0]
+        plan = wrapper.plan
         del got, again
         out[d] = kernel_only_ms(kind, run, flushed=False)[0]
         log(f"{tag} 7j {kind} backward at width {d} (A={a}) on the call's "
             f"table: at most {share:.3g} of the float64 bound, same bits "
-            f"twice; kernel {out[d]:.4f} ms with L2 warm ({card})")
+            f"twice; kernel {out[d]:.4f} ms with L2 warm; plan {plan} "
+            f"({card})")
         del run
     return out
 
@@ -3490,7 +3562,10 @@ def phase_bwd_alone(mod, card):
     phase 7j, the backward kernels at one train step's dense hops of
     each. ``mod`` is this script or, with ``--tree DIR``, DIR's
     chip_smoke.py running DIR's package: the parent tree's steps on the
-    same card. Returns the numbers by cell."""
+    same card; the kernel checks are this script's (`dense_bwd_check`, on
+    whichever package is loaded), so both trees print the same figures,
+    every gradient's share of the float64 bound and the plan among them.
+    Returns the numbers by cell."""
     from redgnn_tpu_torch.cli.train import load_temporal_kg
     from redgnn_tpu_torch.train.temporal_loop import TemporalTrainer
     from redgnn_tpu_torch.utils.config import dataset_config
@@ -3507,8 +3582,8 @@ def phase_bwd_alone(mod, card):
         step_ms, peak = mod.temporal_train_check(trainer, "[7a] 7j", card)
         out["ICEWS14_TeMP"] = {"step_ms": step_ms, "train_peak": peak}
         if hasattr(mod, "dense_bwd_check"):
-            rows = mod.dense_bwd_check(mod.temporal_step_fn(trainer),
-                                       trainer.kg.graph, "[7a]", card)
+            rows = dense_bwd_check(mod.temporal_step_fn(trainer),
+                                   trainer.kg.graph, "[7a]", card)
             out["ICEWS14_TeMP"]["bwd"] = bwd_rows_summary(rows)
         del trainer
     with tempfile.TemporaryDirectory() as tmp:
@@ -3520,17 +3595,22 @@ def phase_bwd_alone(mod, card):
                                               "[umls] 7j", card)
         out["umls"] = {"step_ms": step_ms, "train_peak": peak}
         if hasattr(mod, "dense_bwd_check"):
-            rows = mod.dense_bwd_check(mod.static_step_fn(trainer),
-                                       trainer.kg.graph, "[umls]", card)
+            rows = dense_bwd_check(mod.static_step_fn(trainer),
+                                   trainer.kg.graph, "[umls]", card)
             out["umls"]["bwd"] = bwd_rows_summary(rows)
     return out
 
 
 def bwd_rows_summary(rows) -> dict:
     keys = ("ms", "ms_l2_flushed", "with_sums_ms", "plain_ms",
-            "old_route_ms", "bound_ms", "bound_share", "kept")
+            "old_route_ms", "bound_ms", "floor_ms", "bound_share", "kept",
+            "plan")
     out = {k: [r[k] for r in rows] for k in keys}
     out["widths_ms"] = rows[-1]["widths_ms"]
+    # the worst share of each parameter sum over the calls
+    params = BWD_PARAMS[rows[-1]["kind"]]
+    out["param_shares"] = {k: max(r["shares"][k] for r in rows)
+                           for k in params if k in rows[-1]["shares"]}
     return out
 
 

@@ -1,6 +1,9 @@
-// Shared backward walk of the dense hop's two kernels
-// (dense_hop_static_bwd.cu, dense_hop_temporal_bwd.cu), on Hopper
-// (sm_90a).
+// Backward walk of the temporal dense hop's kernel
+// (dense_hop_temporal_bwd.cu), on Hopper (sm_90a). It was the static
+// kernel's walk too until that kernel took one of its own, with its
+// products on the tensor cores (dense_hop_static_bwd.cuh); the static
+// branches below (kStatic, bf16 tables, kQaGlobal = false) are run by no
+// kernel now and go when this walk is redesigned (ROADMAP.md).
 //
 // Replaces: the gradients of RelAttnLayer.dense
 // (redgnn_tpu/models/layers.py:159-210) and TRedGNN._dense_hop

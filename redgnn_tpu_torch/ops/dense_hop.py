@@ -25,7 +25,8 @@ function in the kernel's factoring. `dense_hop_static_fn` and
 `dense_hop_temporal_fn` wrap them in a ``torch.autograd.Function`` whose
 backward is `dense_hop_static_bwd` / `dense_hop_temporal_bwd`: on a CUDA
 tensor ``csrc/dense_hop_static_bwd.cu`` / ``csrc/dense_hop_temporal_bwd.cu``
-(shared walk ``csrc/dense_hop_bwd.cuh``), whose per-(edge, query) rows are
+(walks ``csrc/dense_hop_static_bwd.cuh`` / ``csrc/dense_hop_bwd.cuh``),
+whose per-(edge, query) rows are
 summed by `ops.gather.list_sum` (the state's by source, the time term's
 by time id) and its per-edge rows by `ops.gather.scatter_rows_add` (by
 relation), both called through the module (so that a recording of
@@ -765,25 +766,31 @@ def bwd_bound(got, want, s_abs, m, plain, kinks=None) -> float:
 
 
 PLAN_KEYS = ("out", "partial", "scratch", "warps", "blocks_x", "chain")
+# the static kernel's plan gives three more
+STATIC_PLAN_KEYS = PLAN_KEYS + ("per_sm", "tables", "split")
 
 
 def _bwd_plan(name: str, *shape) -> dict:
     """The backward kernel's launch plan for ``shape`` (the C entry
-    ``<name>_plan``, csrc/dense_hop_bwd.cuh:make_plan, the one the launch
-    itself follows): the floats of its parameters' sums, its blocks'
-    partial sums and its warps' scratch, its warps a block and blocks a
-    query group, and ``chain``, the most float32 additions that a term of
-    a parameter sum passes through (`bwd_term_counts`)."""
+    ``<name>_plan``, the ``make_plan`` of csrc/dense_hop_static_bwd.cuh or
+    csrc/dense_hop_bwd.cuh, the one the launch itself follows): the floats
+    of its parameters' sums, its blocks' partial sums and its warps'
+    scratch, its warps a block and blocks a query group, and ``chain``, the
+    most float32 additions that a term of a parameter sum passes through
+    (`bwd_term_counts`); the static kernel's also the warps a
+    multiprocessor holds, whether the relation tables are staged in shared
+    memory (1 or 0) and the units an item of the plan is cut into."""
     i64 = ctypes.c_longlong
     fn = _build.entry(name, f"{name}_plan",
                       [i64] * 6 + [ctypes.c_int] * (len(shape) - 6)
                       + [ctypes.POINTER(i64)])
-    out = (i64 * len(PLAN_KEYS))()
+    keys = STATIC_PLAN_KEYS if name == "dense_hop_static_bwd" else PLAN_KEYS
+    out = (i64 * len(keys))()
     err = fn(*shape, out)
     if err != 0:
         raise RuntimeError(f"{name}: no launch plan for {shape}: cudaError "
                            f"{err}")
-    return dict(zip(PLAN_KEYS, out))
+    return dict(zip(keys, out))
 
 
 def _bwd_buffers(e, b, d, a, dev, dmsg: bool, plan: dict):

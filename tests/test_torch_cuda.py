@@ -1452,17 +1452,33 @@ def _bwd_check(kind, plain_args, got, m):
     return share
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", DENSE_STATIC_CASES)
-def test_dense_hop_static_bwd_kernel(card, case, dtype):
-    """csrc/dense_hop_static_bwd.cu (and the list and scatter sums it
-    feeds) at every forward case: each gradient against the float64 plain
-    backward on the same inputs within `bwd_bound` (bf16 tables: the
-    referee promotes the same bf16 rows); the same bits on a second call;
-    both launches counted."""
+def _one_kept_pair(inp):
+    """Visited cleared but for one (source, query): each tail of that
+    source's edges keeps one pair, every other item none."""
+    vis = torch.zeros_like(inp["visited"])
+    if inp["tsrc"].shape[0]:
+        vis[int(inp["tsrc"][inp["tsrc"].shape[0] // 2]),
+            vis.shape[1] - 1] = True
+    inp["visited"] = vis
+
+
+# the static backward's mma tiles' edges: hidden widths 8, 20 (padded to
+# 24; d Ws's rows to 32), 48, 64 by attention widths 1, 5, 30, 64 (padded
+# to 8, 32, 64), a ragged query group (b = 9) and a second one (b = 33)
+BWD_TILES = [(d, a, b) for d in (8, 20, 48, 64) for a in (1, 5, 30, 64)
+             for b in (9, 33)]
+
+
+def _static_bwd_case(card, case, dtype, one_pair=False):
+    """`test_dense_hop_static_bwd_kernel`'s body: the kernel (and the list
+    and scatter sums it feeds) against the float64 plain backward within
+    `bwd_bound`, the same bits on a second call, both launches counted.
+    ``one_pair``: `_one_kept_pair`."""
     from redgnn_tpu_torch.ops import dense_hop as dh
 
     inp = _static_hop_inputs(card, case, dtype)
+    if one_pair:
+        _one_kept_pair(inp)
     n, b, d = inp["hidden"].shape
     g = torch.randn(n, b, d, device=card,
                     generator=torch.Generator(device=card).manual_seed(1))
@@ -1482,6 +1498,36 @@ def test_dense_hop_static_bwd_kernel(card, case, dtype):
                            inp["rela"].shape[0], None,
                            dh.dense_hop_static_bwd.plan)
     _bwd_check("static", args, got, m)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DENSE_STATIC_CASES)
+def test_dense_hop_static_bwd_kernel(card, case, dtype):
+    """csrc/dense_hop_static_bwd.cu (and the list and scatter sums it
+    feeds) at every forward case: each gradient against the float64 plain
+    backward on the same inputs within `bwd_bound` (bf16 tables: the
+    referee promotes the same bf16 rows); the same bits on a second call;
+    both launches counted."""
+    _static_bwd_case(card, case, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,a,b", BWD_TILES)
+def test_dense_hop_static_bwd_kernel_tile_edges(card, d, a, b, dtype):
+    """The static backward where the padding of its mma tiles could leak:
+    every hidden and attention width's tile edge, a ragged and a second
+    query group, float32 and bf16 tables (Zipf tails: items no lane keeps
+    an edge of among them), as `test_dense_hop_static_bwd_kernel`."""
+    _static_bwd_case(card, (80, b, d, a, 2_000, "zipf", 0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(135, 20, 48, 5, 3_000, False, 0.5),
+                                  (80, 33, 20, 30, 2_000, "zipf", 0.5)])
+def test_dense_hop_static_bwd_kernel_one_kept_pair(card, case, dtype):
+    """The static backward with one visited (source, query): tails of one
+    kept pair, and items whose edges no lane keeps."""
+    _static_bwd_case(card, case, dtype, one_pair=True)
 
 
 @pytest.mark.parametrize("case", list(DENSE_TEMPORAL_CASES))

@@ -1,12 +1,9 @@
 // Backward walk of the temporal dense hop's kernel
-// (dense_hop_temporal_bwd.cu), on Hopper (sm_90a). It was the static
-// kernel's walk too until that kernel took one of its own, with its
-// products on the tensor cores (dense_hop_static_bwd.cuh); the static
-// branches below (kStatic, bf16 tables, kQaGlobal = false) are run by no
-// kernel now and go when this walk is redesigned (ROADMAP.md).
+// (dense_hop_temporal_bwd.cu), on Hopper (sm_90a). (The static kernel has a
+// walk of its own, its products on the tensor cores:
+// dense_hop_static_bwd.cuh.)
 //
-// Replaces: the gradients of RelAttnLayer.dense
-// (redgnn_tpu/models/layers.py:159-210) and TRedGNN._dense_hop
+// Replaces: the gradient of TRedGNN._dense_hop
 // (redgnn_tpu/models/temporal.py:461-572), which the JAX package takes by
 // XLA autodiff of the composition: every (E, b, d) intermediate of the
 // forward is kept, and the backward builds as many again. Here the
@@ -15,13 +12,10 @@
 // between the passes.
 //
 // For a kept pair (edge e of tail v, query q), with G the tail's
-// cotangent row (temporal: the cotangent of h through the visited mask,
-// act' as a function of h alone, and the dropout mask):
-//   temporal   msg = hs + hr + TT[t_e, q], out = msg W[dir] (or msg +
-//              B[dir]), pre = hs A1s + RA[rel] + QA[q],
-//              alpha = sigmoid(relu(pre) . a2)
-//   static     m = hs + hr (one bf16 round in bf16), pre = Ws hs + WR[rel]
-//              + WQ[q], alpha = sigmoid(w_a . relu(pre) + b_a)
+// cotangent row (the cotangent of h through the visited mask, act' as a
+// function of h alone, and the dropout mask):
+//   msg = hs + hr + TT[t_e, q], out = msg W[dir] (or msg + B[dir]),
+//   pre = hs A1s + RA[rel] + QA[q], alpha = sigmoid(relu(pre) . a2)
 //   dlogit = (G . out) alpha (1 - alpha), 1 - alpha taken as
 //   sigmoid(-logit) (no cancellation), dpre = dlogit a2 [pre > 0],
 //   d_msg = alpha W[dir] G (or alpha G), d_hs = d_msg + A1s dpre;
@@ -54,7 +48,7 @@
 // Every lane-owned sum and every lane's own running sum lives in the
 // warp's own memory (no two lanes write one float): what a step stages
 // for the other lanes and the sums updated every step by their owning
-// lanes (d A1, d a2, d QA) in shared memory; M, W G and d W (per item) in
+// lanes (d A1, d a2) in shared memory; M, W G, d W (per item) and d QA in
 // a global scratch of the warp's own (L1-cached), which leaves more warps
 // a multiprocessor. The warps' sums are added in warp order by their
 // block, the blocks' in block order by a second kernel (sum_partials):
@@ -64,6 +58,17 @@
 // the warps a block (1 to 4) and whether the relation tables are staged
 // are the choice that keeps the most warps on a multiprocessor in its
 // shared memory, again a function of the shapes.
+//
+// What the card measured (PERF.md §6): a step of this walk at ICEWS14's
+// width (d = 20, A = 30) takes ~30k warp cycles, of which the attention's
+// forward (its RA row read from global memory inside the loop over a),
+// d QA's read-modify-writes of the scratch and the item's end take two
+// thirds. A walk that keeps no scratch inside the edge loop (W G in
+// registers, M and d QA in shared memory, the relation rows spread by
+// shuffles, 8 warps a multiprocessor) ran 14-22% faster there, but its
+// three d x A products then took two thirds of its cycles, latency-bound
+// at the 8 warps its registers and shared memory allow, and it was no
+// faster at width 64; it was not kept.
 //
 // What bounds it: per kept pair the recomputed attention (d A FMAs), d_hs
 // (d A) and the contraction d A1s (d A), with the message's few d; per
@@ -81,10 +86,9 @@ namespace dense_hop_bwd {
 
 using namespace dense_hop;
 
-// the model's switches: the temporal model's use_time, use_attention,
-// direction_transform "linear"; kStatic: RED-GNN's static hop (attention
-// with a bias, no time, no transform, no epilogue)
-constexpr int kLinear = 1, kAttn = 2, kTime = 4, kStatic = 8;
+// the model's switches: use_time, use_attention, direction_transform
+// "linear" (else "bias")
+constexpr int kLinear = 1, kAttn = 2, kTime = 4;
 constexpr int kMaxWarps = 4;     // warps a block at most
 constexpr int kBlocksX = 264;    // persistent blocks a query group at most
 constexpr size_t kSmemPerSM = 233472;   // an H100 multiprocessor's
@@ -105,24 +109,23 @@ __device__ __forceinline__ float act_grad(float h, int act) {
 }
 
 struct Bwd {
-  const void* hidden;        // (n_tail, b, d) float32 (static: or bf16)
-  const void* rela;          // (R, d) in hidden's type
+  const float* hidden;       // (n_tail, b, d)
+  const float* rela;         // (R, d)
   const int* trel;           // (E,)
-  const int* ttime;          // (E,) temporal
-  const int* times;          // (b,) temporal
+  const int* ttime;          // (E,)
+  const int* times;          // (b,)
   const unsigned char* excl;   // (E,) or null
   const unsigned char* ekeep;  // (E, b) or null
   const float* tt;           // (n_time, b, d) or null
-  const float* ra;           // (R, A): RA, or the static WR
-  const float* qa;           // (b, A): QA, or the static WQ
-  const float* a1;           // A1s (d, A), or the static Ws (A, d)
-  const float* a2;           // (A,): a2, or the static w_alpha
-  const float* balpha;       // (1,) static
+  const float* ra;           // (R, A)
+  const float* qa;           // (b, A)
+  const float* a1;           // A1s (d, A)
+  const float* a2;           // (A,)
   const float* wdir;         // (3, d, d) or null
   const float* bdir;         // (3, d) or null
   const float* g;            // (n_tail, b, d) the output's cotangent
-  const float* h;            // (n_tail, b, d) temporal: the output
-  const unsigned char* new_visited;  // (n_tail, b) temporal
+  const float* h;            // (n_tail, b, d) the output
+  const unsigned char* new_visited;  // (n_tail, b)
   const unsigned char* drop;         // (n_tail, b, d) or null
   float drop_div;
   int act, A, R, flags, n_edges;
@@ -145,28 +148,22 @@ __host__ __device__ inline int round4(long long n) {
 // floats of the weights staged once a block: the transforms (linear:
 // [3][DP^2 + 4], bias: [3][DP]), A1 [A][DP], QA [A][32], a2 [A]
 __host__ __device__ inline int base_floats(int dp, int f, int A) {
-  const bool st = f & kStatic;
-  const int w = st ? 0 : (f & kLinear) ? 3 * (dp * dp + 4) : 3 * dp;
+  const int w = (f & kLinear) ? 3 * (dp * dp + 4) : 3 * dp;
   return round4(w + ((f & kAttn) ? A * (dp + 33) : 0));
 }
 
 // floats of a warp's accumulators: d A1 [d][A], d a2 [A], d W [3][d][d]
-// (bias: d B [3][d]; static: d b_alpha [1]), d QA [A][32] (the part
-// summed over every block is the first P - 32 A). d W or d B (a lane's
-// own columns, updated once an item) sit in the warp's global scratch,
-// and d QA (a lane's own column) with them where `kQaGlobal` (the
-// temporal kernel: at 7a it leaves more warps a multiprocessor; the
-// static one, whose few warps wait on it every step, keeps it shared);
-// the rest (updated every step by their owning lanes) in its shared
-// memory: d A1, d a2, the static d b_alpha, then d QA.
+// (bias: d B [3][d]), d QA [A][32] (the part summed over every block is
+// the first P - 32 A). d W or d B (a lane's own columns, updated once an
+// item) and d QA (a lane's own column) sit in the warp's global scratch
+// (at 7a it leaves more warps a multiprocessor); d A1 and d a2 (updated
+// every step by their owning lanes) in its shared memory.
 __host__ __device__ inline int acc_floats(int d, int f, int A) {
-  const bool st = f & kStatic;
-  const int w = st ? 1 : (f & kLinear) ? 3 * d * d : 3 * d;
-  return d * A + A + w + 32 * A;
+  return d * A + A + ((f & kLinear) ? 3 * d * d : 3 * d) + 32 * A;
 }
 
 __host__ __device__ inline int global_acc_floats(int d, int f) {
-  return (f & kStatic) ? 0 : (f & kLinear) ? 3 * d * d : 3 * d;
+  return (f & kLinear) ? 3 * d * d : 3 * d;
 }
 
 // The staged hs rows' stride: float4-aligned rows (broadcast reads of a
@@ -183,23 +180,20 @@ __host__ __device__ inline bool lanes_own_hidden(int d, int A) {
 // floats of a warp's shared memory: staging hs [DP][36], relu(pre)
 // [A][33], dlogit [32], d_msg [DP][33], the item's G [DP][33], dpre
 // [A][32] (lanes owning hidden columns) and the shared accumulators
-__host__ __device__ inline size_t warp_floats(int dp, int d, int f, int A,
-                                              bool qa_global) {
+__host__ __device__ inline size_t warp_floats(int dp, int d, int f, int A) {
   return (size_t)kHs * dp + round4(33 * A) + 32 + 2 * round4(33 * dp) +
          (lanes_own_hidden(d, A) ? 32 * A : 0) +
-         round4(acc_floats(d, f, A) - global_acc_floats(d, f) -
-                (qa_global ? 32 * A : 0));
+         round4(acc_floats(d, f, A) - global_acc_floats(d, f) - 32 * A);
 }
 
 // floats of a warp's global scratch (L1-cached; what lanes keep per item,
 // moved out of shared memory so that more warps fit a multiprocessor):
 // M [3][DP][32] (bias: S [3][32]), W G [3][DP][32] (linear), d W or d B,
-// d QA where `qa_global`
-__host__ __device__ inline size_t glob_floats(int dp, int d, int f, int A,
-                                              bool qa_global) {
-  const bool st = f & kStatic, linear = !st && (f & kLinear);
-  return (size_t)(st ? 0 : linear ? 96 * dp : 96) + (linear ? 96 * dp : 0) +
-         round4(global_acc_floats(d, f) + (qa_global ? 32 * A : 0));
+// d QA
+__host__ __device__ inline size_t glob_floats(int dp, int d, int f, int A) {
+  const bool linear = f & kLinear;
+  return (size_t)(linear ? 96 * dp : 96) + (linear ? 96 * dp : 0) +
+         round4(global_acc_floats(d, f) + 32 * A);
 }
 
 // Sum of s[4k .. 4k + 3] * y[4k .. 4k + 3] over k: a row of 32 staged
@@ -260,26 +254,23 @@ __device__ __forceinline__ void add_row(const float* __restrict__ row, int d,
   }
 }
 
-template <int DP, typename T, bool kQaGlobal>
+template <int DP>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 hop_bwd(Walk p, Bwd t) {
   extern __shared__ __align__(16) float sm[];
   const int f = t.flags;
-  const bool is_static = f & kStatic, use_time = f & kTime,
-             attn = f & kAttn, linear = f & kLinear;
-  const bool bias = !is_static && !linear;
+  const bool use_time = f & kTime, attn = f & kAttn, linear = f & kLinear;
   const int A = attn ? t.A : 0;
   const int d = p.d;
   const int g = blockIdx.y;
   constexpr int kMat = DP * DP + 4;  // one transform, padded
   // the weights, as the forward stages them
   float* s_w = sm;  // [3][kMat] or [3][DP]
-  float* s_a1 = s_w + (is_static ? 0 : linear ? 3 * kMat : 3 * DP);
+  float* s_a1 = s_w + (linear ? 3 * kMat : 3 * DP);
   float* s_qa = s_a1 + A * DP;  // [A][32]
   float* s_a2 = s_qa + A * 32;  // [A]
   if (attn) {
-    if (is_static) stage_proj(s_a1, t.a1, 1, d, DP, d, A);  // Ws (A, d)
-    else stage_proj(s_a1, t.a1, A, 1, DP, d, A);            // A1s (d, A)
+    stage_proj(s_a1, t.a1, A, 1, DP, d, A);  // A1s (d, A)
     stage_query(s_qa, t.qa, p.b, A, g);
     stage_vec(s_a2, t.a2, A);
   }
@@ -288,7 +279,7 @@ hop_bwd(Walk p, Bwd t) {
       const int m = k / kMat, r = k - m * kMat, i = r / DP, j = r - i * DP;
       s_w[k] = (i < d && j < d) ? t.wdir[((size_t)m * d + i) * d + j] : 0.f;
     }
-  } else if (bias) {
+  } else {
     for (int k = threadIdx.x; k < 3 * DP; k += blockDim.x) {
       const int m = k / DP, j = k - m * DP;
       s_w[k] = j < d ? t.bdir[m * d + j] : 0.f;
@@ -296,7 +287,7 @@ hop_bwd(Walk p, Bwd t) {
   }
   const int base = base_floats(DP, f, A);
   const float* t_ra = t.ra;  // the relation tables: shared or global
-  const T* t_rela = reinterpret_cast<const T*>(t.rela);
+  const float* t_rela = t.rela;
   float* s_next = sm + base;
   if (t.tables) {
     if (attn) {
@@ -304,10 +295,9 @@ hop_bwd(Walk p, Bwd t) {
       t_ra = s_next;
       s_next += round4((long long)t.R * A);
     }
-    T* s_rela = reinterpret_cast<T*>(s_next);
-    stage_table(s_rela, reinterpret_cast<const T*>(t.rela), t.R * d);
-    t_rela = s_rela;
-    s_next += round4(((long long)t.R * d * sizeof(T) + 3) / 4);
+    stage_table(s_next, t.rela, t.R * d);
+    t_rela = s_next;
+    s_next += round4((long long)t.R * d);
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* s_warps = s_next;
@@ -321,29 +311,28 @@ hop_bwd(Walk p, Bwd t) {
   // attention columns than hidden ones) hidden columns, reading dpre
   // staged as [A][32]
   const bool own_i = lanes_own_hidden(d, A);
-  float* acc = s_dp + (own_i ? 32 * A : 0);  // d A1, d a2 (d b_alpha), d QA
+  float* acc = s_dp + (own_i ? 32 * A : 0);  // d A1, d a2
   // the warp's global scratch: M [3][DP][32] or S [3][32], W G
   // [3][DP][32], then d W or d B and d QA
   float* s_m = t.scratch +
                (((size_t)g * gridDim.x + blockIdx.x) * t.warps + warp) *
                    t.glob_floats;
-  float* s_wg = s_m + (is_static ? 0 : linear ? 96 * DP : 96);
-  float* acc_w = s_wg + (linear ? 96 * DP : 0);  // temporal: d W or d B
+  float* s_wg = s_m + (linear ? 96 * DP : 96);
+  float* acc_w = s_wg + (linear ? 96 * DP : 0);  // d W or d B
   const int off_a2 = d * A, off_w = off_a2 + A;
   const int n_w = global_acc_floats(d, f);   // in global memory
-  const int off_qa = off_w + (is_static ? 1 : n_w);
+  const int off_qa = off_w + n_w;
   const int n_acc = off_qa + 32 * A;
-  // in global memory: d W or d B, then d QA where kQaGlobal
-  const int n_g = n_w + (kQaGlobal ? 32 * A : 0);
-  float* acc_qa = kQaGlobal ? acc_w + n_w : acc + (off_qa - n_w);
+  // in global memory: d W or d B, then d QA
+  const int n_g = n_w + 32 * A;
+  float* acc_qa = acc_w + n_w;
   for (int k = lane; k < n_acc - n_g; k += 32) acc[k] = 0.f;
   for (int k = lane; k < n_g; k += 32) acc_w[k] = 0.f;
   __syncthreads();
 
   const int q = g * 32 + lane;
   const bool active = q < p.b;
-  const int tq = (!is_static && active) ? __ldg(t.times + q) : 0;
-  const float ba = is_static ? __ldg(t.balpha) : 0.f;
+  const int tq = active ? __ldg(t.times + q) : 0;
   const int we = d + A;  // width of a per-edge row
   const int n_items = __ldg(p.item_ptr + p.n_tail);
   const int stride = gridDim.x * t.warps;
@@ -357,17 +346,15 @@ hop_bwd(Walk p, Bwd t) {
     for (int i = 0; i < DP; ++i) G[i] = 0.f;
     if (active) {
       load_row<DP>(t.g + vrow * d, d, t.vec_g, G);
-      if (!is_static) {
-        float H[DP];
-        load_row<DP>(t.h + vrow * d, d, t.vec_o, H);
-        const bool nv = t.new_visited[vrow];
-        const unsigned char* drop = t.drop ? t.drop + vrow * d : nullptr;
+      float H[DP];
+      load_row<DP>(t.h + vrow * d, d, t.vec_o, H);
+      const bool nv = t.new_visited[vrow];
+      const unsigned char* drop = t.drop ? t.drop + vrow * d : nullptr;
 #pragma unroll
-        for (int i = 0; i < DP; ++i) {
-          float gi = nv ? G[i] * act_grad(H[i], t.act) : 0.f;
-          if (drop && i < d) gi = drop[i] ? gi / t.drop_div : 0.f;
-          G[i] = i < d ? gi : 0.f;
-        }
+      for (int i = 0; i < DP; ++i) {
+        float gi = nv ? G[i] * act_grad(H[i], t.act) : 0.f;
+        if (drop && i < d) gi = drop[i] ? gi / t.drop_div : 0.f;
+        G[i] = i < d ? gi : 0.f;
       }
     }
     // the lane's own column of G, and (linear) W[k] G for each direction
@@ -398,10 +385,8 @@ hop_bwd(Walk p, Bwd t) {
     bool ok = lane < ne;
     if (ok) {
       rel_k = __ldg(t.trel + it.e0 + lane);
-      if (!is_static) {
-        te_k = __ldg(t.ttime + it.e0 + lane);
-        if (t.excl) ok = t.excl[it.e0 + lane];
-      }
+      te_k = __ldg(t.ttime + it.e0 + lane);
+      if (t.excl) ok = t.excl[it.e0 + lane];
     }
     Chunk c = stage_chunk(p, it, q, active, __ballot_sync(kFull, ok),
                           t.ekeep);
@@ -409,7 +394,7 @@ hop_bwd(Walk p, Bwd t) {
     if (linear) {
 #pragma unroll 4
       for (int k = 0; k < 3 * DP; ++k) s_m[k * 32 + lane] = 0.f;
-    } else if (bias) {
+    } else {
       for (int k = 0; k < 3; ++k) s_m[k * 32 + lane] = 0.f;
     }
     for (int j = 0; j < ne; ++j) {
@@ -446,16 +431,14 @@ hop_bwd(Walk p, Bwd t) {
         }
       }
       if (kept)
-        load_row<DP>(reinterpret_cast<const T*>(t.hidden) +
-                         ((size_t)src * p.b + q) * d,
-                     d, t.vec_h, x);
+        load_row<DP>(t.hidden + ((size_t)src * p.b + q) * d, d, t.vec_h, x);
       // the attention's forward: relu(pre) staged for the contractions
       // alpha and 1 - alpha = sigmoid(-logit), each to a few ulps (1.f -
       // alpha cancels where alpha nears 1)
       float alpha = 1.f, beta = 0.f;
       if (attn) {
         const float* r_row = t_ra + (size_t)rel * A;
-        float logit = ba;
+        float logit = 0.f;
 #pragma unroll 2
         for (int a = 0; a < A; ++a) {
           float pre = r_row[a] + s_qa[a * 32 + lane];
@@ -483,11 +466,6 @@ hop_bwd(Walk p, Bwd t) {
         for (int i = 0; i < DP; ++i) x[i] += hr[i];
       } else {
         add_table_row<DP>(t_rela + (size_t)rel * d, d, t.vec_r, x);
-      }
-      if (is_static && sizeof(T) == 2) {
-#pragma unroll
-        for (int i = 0; i < DP; ++i)
-          x[i] = __bfloat162float(__float2bfloat16_rn(x[i]));
       }
       if (use_time && kept) {
         if constexpr (kEarly) {
@@ -519,11 +497,10 @@ hop_bwd(Walk p, Bwd t) {
 #pragma unroll
         for (int i = 0; i < DP; ++i) {
           const float gi = s_g[i * 33 + lane];
-          const float o = bias ? x[i] + B[i] : x[i];
-          da = fmaf(gi, o, da);
+          da = fmaf(gi, x[i] + B[i], da);
           x[i] = kept ? alpha * gi : 0.f;
         }
-        if (bias && kept) s_m[dir * 32 + lane] += alpha;
+        if (kept) s_m[dir * 32 + lane] += alpha;
       }
       const float dl = (attn && kept) ? da * alpha * beta : 0.f;
       s_dl[lane] = dl;
@@ -576,12 +553,6 @@ hop_bwd(Walk p, Bwd t) {
             acc[i * A + a] += dot32(s_dp + a * 32, hc);
         }
       }
-      if (is_static && lane == 0) {
-        float s = 0.f;
-#pragma unroll
-        for (int l = 0; l < 32; ++l) s += s_dl[l];
-        acc[off_w] += s;
-      }
       for (int jj = lane; jj < d; jj += 32) {
         float s0 = 0.f, s1 = 0.f;
 #pragma unroll
@@ -595,25 +566,23 @@ hop_bwd(Walk p, Bwd t) {
     }
     // the item's end: d W[k] += M_k (x) G, d B[k] += S_k G (M and S in
     // global memory: the lanes' writes made visible to the warp first)
-    if (!is_static) {
-      __threadfence_block();
-      __syncwarp();
-      for (int jj = lane; jj < d; jj += 32) {
-        float gc[32];
+    __threadfence_block();
+    __syncwarp();
+    for (int jj = lane; jj < d; jj += 32) {
+      float gc[32];
 #pragma unroll
-        for (int l = 0; l < 32; ++l) gc[l] = s_g[jj * 33 + l];
-        if (linear) {
-          for (int k = 0; k < 3; ++k)
-            for (int i = 0; i < d; ++i)
-              acc_w[(k * d + i) * d + jj] +=
-                  dot32(s_m + (size_t)(k * DP + i) * 32, gc);
-        } else {
-          for (int k = 0; k < 3; ++k)
-            acc_w[k * d + jj] += dot32(s_m + k * 32, gc);
-        }
+      for (int l = 0; l < 32; ++l) gc[l] = s_g[jj * 33 + l];
+      if (linear) {
+        for (int k = 0; k < 3; ++k)
+          for (int i = 0; i < d; ++i)
+            acc_w[(k * d + i) * d + jj] +=
+                dot32(s_m + (size_t)(k * DP + i) * 32, gc);
+      } else {
+        for (int k = 0; k < 3; ++k)
+          acc_w[k * d + jj] += dot32(s_m + k * 32, gc);
       }
-      __syncwarp();
     }
+    __syncwarp();
   }
   __syncthreads();
   // the block's sums, its warps in order
@@ -624,11 +593,10 @@ hop_bwd(Walk p, Bwd t) {
       t.scratch + ((size_t)g * gridDim.x + blockIdx.x) * t.warps *
                       t.glob_floats;
   for (int k = threadIdx.x; k < n_acc; k += blockDim.x) {
-    // entry k of a warp's accumulators: d W or d B (and d QA where
-    // kQaGlobal) in global memory, in order; the rest, in order, in shared
-    // memory
+    // entry k of a warp's accumulators: d W or d B and d QA in global
+    // memory, in order; the rest, in order, in shared memory
     const bool in_w = k >= off_w && k < off_w + n_w;
-    const bool global = in_w || (kQaGlobal && k >= off_qa);
+    const bool global = in_w || k >= off_qa;
     const size_t at = global ? w_at + (in_w ? k - off_w : n_w + k - off_qa)
                              : acc_at + (k < off_w ? k : k - n_w);
     float s = 0.f;
@@ -690,16 +658,16 @@ struct Plan {
 };
 
 inline Plan make_plan(int d, int f, int A, int R, int b, long long items,
-                      int chunk, size_t t_size, bool qa_global) {
+                      int chunk) {
   Plan pl = {};
   const int dp = instance_width(d);
   if (!(f & kAttn)) A = 0;
   const size_t base = sizeof(float) * base_floats(dp, f, A);
   const size_t tab =
       sizeof(float) * (((f & kAttn) ? round4((long long)R * A) : 0) +
-                       round4(((long long)R * d * t_size + 3) / 4));
-  pl.warp_floats = warp_floats(dp, d, f, A, qa_global);
-  pl.glob_floats = glob_floats(dp, d, f, A, qa_global);
+                       round4((long long)R * d));
+  pl.warp_floats = warp_floats(dp, d, f, A);
+  pl.glob_floats = glob_floats(dp, d, f, A);
   const size_t per_warp = sizeof(float) * pl.warp_floats;
   int best = 0;
   for (int staged = 1; staged >= 0; --staged) {
@@ -747,17 +715,17 @@ inline int write_plan(const Plan& pl, long long* out) {
 }
 
 // The walk and the sum of its blocks' partials, as `make_plan` plans them.
-template <int DP, typename T, bool kQaGlobal>
+template <int DP>
 int launch(const Walk& p, Bwd t, const Plan& pl, cudaStream_t stream) {
   t.warps = pl.warps;
   t.tables = pl.tables;
   t.warp_floats = pl.warp_floats;
   t.glob_floats = pl.glob_floats;
   const cudaError_t err = cudaFuncSetAttribute(
-      hop_bwd<DP, T, kQaGlobal>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      hop_bwd<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)pl.smem);
   if (err != cudaSuccess) return (int)err;
-  hop_bwd<DP, T, kQaGlobal>
+  hop_bwd<DP>
       <<<dim3(pl.blocks_x, pl.groups), pl.warps * 32, pl.smem, stream>>>(p,
                                                                        t);
   cudaError_t e = cudaGetLastError();
@@ -767,20 +735,18 @@ int launch(const Walk& p, Bwd t, const Plan& pl, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kQaGlobal>
-int by_width(int d, const Walk& p, const Bwd& t, long long items,
-             cudaStream_t s) {
-  const Plan pl = make_plan(d, t.flags, t.A, t.R, p.b, items, p.chunk,
-                            sizeof(T), kQaGlobal);
+inline int by_width(int d, const Walk& p, const Bwd& t, long long items,
+                    cudaStream_t s) {
+  const Plan pl = make_plan(d, t.flags, t.A, t.R, p.b, items, p.chunk);
   if (pl.warps == 0) return (int)cudaErrorInvalidValue;
   switch (instance_width(d)) {
-    case 8: return launch<8, T, kQaGlobal>(p, t, pl, s);
-    case 16: return launch<16, T, kQaGlobal>(p, t, pl, s);
-    case 20: return launch<20, T, kQaGlobal>(p, t, pl, s);
-    case 24: return launch<24, T, kQaGlobal>(p, t, pl, s);
-    case 32: return launch<32, T, kQaGlobal>(p, t, pl, s);
-    case 48: return launch<48, T, kQaGlobal>(p, t, pl, s);
-    case 64: return launch<64, T, kQaGlobal>(p, t, pl, s);
+    case 8: return launch<8>(p, t, pl, s);
+    case 16: return launch<16>(p, t, pl, s);
+    case 20: return launch<20>(p, t, pl, s);
+    case 24: return launch<24>(p, t, pl, s);
+    case 32: return launch<32>(p, t, pl, s);
+    case 48: return launch<48>(p, t, pl, s);
+    case 64: return launch<64>(p, t, pl, s);
   }
   return (int)cudaErrorInvalidValue;
 }

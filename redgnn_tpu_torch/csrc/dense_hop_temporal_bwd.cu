@@ -58,8 +58,8 @@ extern "C" int dense_hop_temporal_bwd(
   p.d = (int)d;
   p.chunk = (int)chunk;
   Bwd t = {};
-  t.hidden = hidden;
-  t.rela = rela;
+  t.hidden = (const float*)hidden;
+  t.rela = (const float*)rela;
   t.trel = (const int*)trel;
   t.ttime = (const int*)ttime;
   t.times = (const int*)times;
@@ -94,7 +94,7 @@ extern "C" int dense_hop_temporal_bwd(
   t.vec_r = d % 4 == 0 && (uintptr_t)rela % 16 == 0;
   t.vec_g = d % 4 == 0 && (uintptr_t)g % 16 == 0;
   t.vec_o = d % 4 == 0 && (uintptr_t)h % 16 == 0;
-  return by_width<float, true>((int)d, p, t, items, (cudaStream_t)stream);
+  return by_width((int)d, p, t, items, (cudaStream_t)stream);
 }
 
 // The launch's plan for these shapes (dense_hop_bwd.cuh:make_plan):
@@ -116,6 +116,6 @@ extern "C" int dense_hop_temporal_bwd_plan(long long b, long long d,
   const int f = (use_time ? kTime : 0) | (use_attn ? kAttn : 0) |
                 (linear ? kLinear : 0);
   return write_plan(make_plan((int)d, f, use_attn ? (int)a : 0, (int)n_rel,
-                              (int)b, items, (int)chunk, sizeof(float), true),
+                              (int)b, items, (int)chunk),
                     out);
 }

@@ -1342,6 +1342,9 @@ DENSE_TEMPORAL_CASES = {
                  "leakyrelu", 0.5),
     "w64_zipf_full": (250, 40, 64, 64, 20_000, "zipf", True, True, True,
                       False, "relu", 1.0),
+    # ICEWS14's widths with a second query group of one lane
+    "icews14_b33": (2_000, 33, 20, 30, 30_000, "zipf", True, True, True,
+                    True, "idd", 0.5),
 }
 
 
@@ -1530,17 +1533,13 @@ def test_dense_hop_static_bwd_kernel_one_kept_pair(card, case, dtype):
     _static_bwd_case(card, case, dtype, one_pair=True)
 
 
-@pytest.mark.parametrize("case", list(DENSE_TEMPORAL_CASES))
-def test_dense_hop_temporal_bwd_kernel(card, case):
-    """csrc/dense_hop_temporal_bwd.cu (and the list and scatter sums it
-    feeds) at every forward case (ICEWS14's sizes, every ablation, b > 32,
-    widths 48 and 64): each gradient against the float64 plain backward
-    on the same inputs (h the forward kernel's output) within
-    `bwd_bound`; the same bits on a second call; both launches
-    counted."""
+def _temporal_bwd_case(card, inp):
+    """`test_dense_hop_temporal_bwd_kernel`'s body on the forward inputs
+    ``inp``: the kernel (and the list and scatter sums it feeds) against
+    the float64 plain backward within `bwd_bound` at the plan's chain, the
+    same bits on a second call, both launches counted."""
     from redgnn_tpu_torch.ops import dense_hop as dh
 
-    inp = _temporal_hop_inputs(card, case)
     n, b, d = inp["hidden"].shape
     plan = dict(dense_agg="sorted_scatter",
                 item_ptr=dh.tail_items(inp["tail_rowptr"]))
@@ -1566,6 +1565,42 @@ def test_dense_hop_temporal_bwd_kernel(card, case):
                            inp["ttime"], b, n, inp["rela"].shape[0], n_time,
                            dh.dense_hop_temporal_bwd.plan)
     _bwd_check("temporal", args, got, m)
+
+
+@pytest.mark.parametrize("case", list(DENSE_TEMPORAL_CASES))
+def test_dense_hop_temporal_bwd_kernel(card, case):
+    """csrc/dense_hop_temporal_bwd.cu (and the list and scatter sums it
+    feeds) at every forward case (ICEWS14's sizes, every ablation, b > 32
+    and a second query group of one lane, widths 48 and 64): each
+    gradient against the float64 plain backward on the same inputs (h the
+    forward kernel's output) within `bwd_bound`; the same bits on a second
+    call; both launches counted."""
+    _temporal_bwd_case(card, _temporal_hop_inputs(card, case))
+
+
+@pytest.mark.parametrize("case", ["icews14_zipf_sparse", "bias",
+                                  "icews14_b33"])
+def test_dense_hop_temporal_bwd_kernel_one_kept_pair(card, case):
+    """The temporal backward with one visited (source, query): tails of
+    one kept pair, and items whose edges no lane keeps."""
+    inp = _temporal_hop_inputs(card, case)
+    _one_kept_pair(inp)
+    _temporal_bwd_case(card, inp)
+
+
+@pytest.mark.parametrize("case", ["icews14_zipf_full", "bias", "w48",
+                                  "w64_zipf_full"])
+def test_dense_hop_temporal_bwd_kernel_three_directions(card, case):
+    """The temporal backward where every lane's items hold edges of all
+    three directions: every query at time 100, the edges' times cycling
+    99, 100, 101 along the table (each direction's W G and M of an item
+    used; W G in registers at width 20, in shared memory at 48 and 64;
+    the bias form's S)."""
+    inp = _temporal_hop_inputs(card, case)
+    e, b = inp["ttime"].shape[0], inp["times"].shape[0]
+    inp["times"] = torch.full((b,), 100, dtype=torch.int32, device=card)
+    inp["ttime"] = (99 + torch.arange(e, device=card) % 3).to(torch.int32)
+    _temporal_bwd_case(card, inp)
 
 
 def test_dense_hop_kernels_refuse_before_launching(card):

@@ -477,12 +477,14 @@ def phase_build():
 
     names = _build.KERNELS
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names) + 2) as pool:
+    with ThreadPoolExecutor(len(names) + 3) as pool:
         host_job = pool.submit(_build.build_host, "graphcore")
-        fault_job = pool.submit(build_planted_fault)
+        fault_jobs = [pool.submit(build_planted_fault, kind)
+                      for kind in planted_faults()]
         results = list(pool.map(_build.build, names))
         host = host_job.result()
-        fault_job.result()
+        for job in fault_jobs:
+            job.result()
     for name, res in zip(names, results):
         log(f"[build] {name}.cu -> {os.path.relpath(res['path'])} in "
             f"{res['seconds']:.2f} s (nvcc, sm_90a)")
@@ -3209,48 +3211,92 @@ def dense_bwd_calls(run):
     return [h + [b] for h, b in zip(hops, reversed(bwds))]
 
 
-PLANTED: dict = {}  # the planted fault's library, built once a process
+PLANTED: dict = {}  # the planted faults' libraries, built once a process
+
+# The planted faults of phase 7j, each a text edit of the temporal
+# backward's walk header (csrc/dense_hop_bwd.cuh): (the text, how many
+# times it must be found, its replacement, what the fault does).
+# "partial": sum_partials drops block 1's partial; "order": one attention
+# tile's k-step of the tensor-core walk's d_hs product takes dpre's
+# fragment in the accumulator's own order (c0, c1, c2, c3) instead of the
+# k order 0, 2, 4, 6, 1, 3, 5, 7 its B operand is staged for.
+PLANTED_FAULTS = {
+    "partial": ("for (int x = 0; x < blocks_x; ++x) s += __ldg(", 2,
+                "for (int x = 0; x < blocks_x; ++x) if (x != 1) s += __ldg(",
+                "block 1's partial dropped in sum_partials"),
+    "order": ("            split(dp[mt][2], ab[1], as[1]);\n"
+              "            split(dp[mt][1], ab[2], as[2]);\n", 1,
+              "            split(dp[mt][n == 0 ? 1 : 2], ab[1], as[1]);\n"
+              "            split(dp[mt][n == 0 ? 2 : 1], ab[2], as[2]);\n",
+              "d_hs's first attention tile reads dpre in the accumulator's "
+              "order, not k 0, 2, 4, 6, 1, 3, 5, 7"),
+}
 
 
-def build_planted_fault() -> str:
-    """The temporal backward kernel with a planted fault, for the float64
-    check to catch: nvcc (the kernels' flags) of a copy of the loaded
-    package's csrc/dense_hop_temporal_bwd.cu whose walk header's
-    sum_partials drops block 1's partial. Returns the library's path
-    (built once a process, in a temporary directory)."""
+def walk_header() -> str:
+    """The loaded package's temporal backward walk header."""
     from redgnn_tpu_torch import _build
 
-    if "path" not in PLANTED:
-        tmp = tempfile.mkdtemp(prefix="planted_fault")
+    with open(os.path.join(_build.CSRC_DIR, "dense_hop_bwd.cuh")) as f:
+        return f.read()
+
+
+def tc_walk_widths() -> int:
+    """The widest hidden width the loaded package's temporal backward takes
+    on the tensor cores (its header's kTcMaxWidth), 0 where its walk has
+    none (the scalar walk alone)."""
+    import re
+
+    m = re.search(r"constexpr int kTcMaxWidth = (\d+);", walk_header())
+    return int(m.group(1)) if m else 0
+
+
+def planted_faults() -> list:
+    """The planted faults the loaded package's walk holds the text of: both
+    for the tensor-core walk (an assertion if its text is missing), the
+    partial's alone for a walk without tensor cores."""
+    return ["partial", "order"] if tc_walk_widths() else ["partial"]
+
+
+def build_planted_fault(kind: str = "partial") -> str:
+    """The temporal backward kernel with planted fault ``kind``
+    (`PLANTED_FAULTS`), for the float64 check to catch: nvcc (the kernels'
+    flags) of a copy of the loaded package's csrc/ whose walk header holds
+    the fault. Returns the library's path (built once a process, in a
+    temporary directory)."""
+    from redgnn_tpu_torch import _build
+
+    if kind not in PLANTED:
+        text, count, fault, _ = PLANTED_FAULTS[kind]
+        tmp = tempfile.mkdtemp(prefix=f"planted_{kind}")
         for f in os.listdir(_build.CSRC_DIR):
             if f.endswith((".cu", ".cuh")):
                 shutil.copy(os.path.join(_build.CSRC_DIR, f), tmp)
         header = os.path.join(tmp, "dense_hop_bwd.cuh")
         src = open(header).read()
-        keep = "for (int x = 0; x < blocks_x; ++x) s += __ldg("
-        assert src.count(keep) == 2, "sum_partials' loops not found"
-        src = src.replace(keep, "for (int x = 0; x < blocks_x; ++x) "
-                          "if (x != 1) s += __ldg(")
+        assert src.count(text) == count, (
+            f"the planted fault {kind!r}: its text is found "
+            f"{src.count(text)} times, not {count}")
         with open(header, "w") as f:
-            f.write(src)
+            f.write(src.replace(text, fault))
         lib = os.path.join(tmp, "libplanted.so")
         proc = subprocess.run(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
              os.path.join(tmp, "dense_hop_temporal_bwd.cu")],
             capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError("nvcc of the planted fault failed:\n"
+            raise RuntimeError(f"nvcc of the planted fault {kind!r} failed:\n"
                                + proc.stdout + proc.stderr)
-        PLANTED["path"] = lib
-    return PLANTED["path"]
+        PLANTED[kind] = lib
+    return PLANTED[kind]
 
 
-def planted_fault_check(calls, tag: str) -> list:
-    """The float64 check of phase 7j against its planted fault: every
-    temporal call of ``calls`` (`dense_bwd_calls`) run through
-    `build_planted_fault`'s kernel (its entries put in place of the
-    package's for the wrapper, then restored) must fail
-    `bwd_float64_check`. Returns the calls' largest shares."""
+def planted_fault_check(calls, tag: str) -> dict:
+    """The float64 check of phase 7j against its planted faults: every
+    temporal call of ``calls`` (`dense_bwd_calls`) run through each of
+    `planted_faults`' kernels (their entries put in place of the package's
+    for the wrapper, then restored) must fail `bwd_float64_check`. Returns
+    {fault: the calls' largest shares}."""
     from redgnn_tpu_torch import _build
     from redgnn_tpu_torch.ops import dense_hop as dh
 
@@ -3260,33 +3306,37 @@ def planted_fault_check(calls, tag: str) -> list:
     temporal = [(hop, args) for kind, hop, args in calls
                 if kind == "temporal"]
     if not temporal:
-        return []
+        return {}
     wrapper(*temporal[0][1])  # the package's entries loaded and kept
     saved = {k: _build._ENTRIES[k] for k in keys}
-    lib = ctypes.CDLL(build_planted_fault())
-    planted = {}
-    for key in keys:
-        fn = getattr(lib, key[1])
-        fn.argtypes, fn.restype = saved[key].argtypes, ctypes.c_int
-        planted[key] = fn
-    shares = []
-    try:
-        _build._ENTRIES.update(planted)
-        for i, (_, args) in enumerate(temporal):
-            got = wrapper(*args)
-            share = bwd_float64_check("temporal", args, got,
-                                      f"{tag} planted fault, call {i}",
-                                      strict=False)[0]
-            del got
-            shares.append(share)
-    finally:
-        _build._ENTRIES.update(saved)
-    log(f"{tag} 7j planted fault (block 1's partial dropped in "
-        f"sum_partials): the float64 check's largest share at each call "
-        + ", ".join(f"{x:.3g}" for x in shares)
-        + f": {'every call fails it' if min(shares) > 1 else 'NOT CAUGHT'}")
-    assert min(shares) > 1.0, ("the planted fault passed the check", shares)
-    return shares
+    out = {}
+    for fault in planted_faults():
+        lib = ctypes.CDLL(build_planted_fault(fault))
+        planted = {}
+        for key in keys:
+            fn = getattr(lib, key[1])
+            fn.argtypes, fn.restype = saved[key].argtypes, ctypes.c_int
+            planted[key] = fn
+        shares = []
+        try:
+            _build._ENTRIES.update(planted)
+            for i, (_, args) in enumerate(temporal):
+                got = wrapper(*args)
+                share = bwd_float64_check("temporal", args, got,
+                                          f"{tag} planted fault {fault}, "
+                                          f"call {i}", strict=False)[0]
+                del got
+                shares.append(share)
+        finally:
+            _build._ENTRIES.update(saved)
+        log(f"{tag} 7j planted fault {fault} ({PLANTED_FAULTS[fault][3]}): "
+            f"the float64 check's largest share at each call "
+            + ", ".join(f"{x:.3g}" for x in shares)
+            + f": {'every call fails it' if min(shares) > 1 else 'NOT CAUGHT'}")
+        assert min(shares) > 1.0, (f"the planted fault {fault} passed the "
+                                   "check", shares)
+        out[fault] = shares
+    return out
 
 
 def log_bwd_registers(tag: str) -> None:
@@ -3316,9 +3366,16 @@ def log_bwd_registers(tag: str) -> None:
         if m:
             current["regs"] = int(m.group(1))
     for r in rows:
+        # the tensor-core walk's (hidden, attention) instances, the
+        # scalar walk's widths
+        m = re.search(r"tc_bwdILi(\d+)ELi(\d+)E", r["fn"])
+        what = (f"tensor-core walk instance width {m.group(1)}, attention "
+                f"{m.group(2)}" if m else None)
         m = re.search(r"hop_bwdILi(\d+)E", r["fn"])
         if m:
-            log(f"{tag} 7j temporal backward instance width {m.group(1)}: "
+            what = f"scalar walk instance width {m.group(1)}"
+        if what:
+            log(f"{tag} 7j temporal backward {what}: "
                 f"{r.get('regs')} registers, {r.get('spill_st')} / "
                 f"{r.get('spill_ld')} bytes spill stores / loads, "
                 f"{r.get('stack')} bytes stack")
@@ -3376,30 +3433,52 @@ def dense_bwd_floor(kind, args, moved: int):
     """(bytes, TF32 FLOPs) of the backward kernel's own design, beyond the
     function's bound: the function's bytes plus the per-pair rows it
     writes for `list_sum` (d_hs, and d_msg with a time term) and the
-    per-edge rows for `take_rows_grad`; the static kernel's tensor-core
-    products as it runs them (csrc/dense_hop_static_bwd.cuh; 3xTF32: three
-    passes, every tile padded: hidden and attention widths to 8, the
-    hidden rows of d Ws to 16, queries to 32 a group) per (edge, query
-    group) with a kept pair: pre, d_hs and d Ws. The temporal kernel
-    (csrc/dense_hop_bwd.cuh) does its products in float32, the function's
-    own work, which its bound counts: no TF32 FLOPs."""
+    per-edge rows for `take_rows_grad`; the tensor-core products as the
+    walk runs them (csrc/dense_hop_static_bwd.cuh, csrc/dense_hop_bwd.cuh;
+    3xTF32: three passes, every tile padded: hidden and attention widths to
+    8, the hidden rows of d A1s and d W to 16, queries to 32 a group) per
+    (edge, query group) with a kept pair: pre, d_hs and the d A1s
+    contraction; the temporal walk's also W[k] G and d W[k] per (tail,
+    query group, direction) with a kept pair (linear transform; a warp
+    walks a contiguous run of items, so a tail whose items two warps share
+    takes them twice: not counted). The scalar temporal walk (no tensor
+    cores: `tc_walk_widths` 0, or a width above it) does its products in
+    float32, the function's own work, which its bound counts: no TF32
+    FLOPs."""
     if kind == "static":
         hidden, vis, tsrc, tt = args[1], args[2], args[4], None
         a = args[11].shape[0]
+        keep = vis[tsrc.long()]
     else:
-        hidden, tsrc, tt = args[3], args[6], args[15]
+        hidden, vis, tsrc, tt = args[3], args[4], args[6], args[15]
         a = 0 if args[16] is None else args[16].shape[1]
+        keep = vis[tsrc.long()]
+        if args[13] is not None:
+            keep = keep & args[13][:, None]
+        if args[14] is not None:
+            keep = keep & args[14]
     n, b, d = hidden.shape
     e, groups = tsrc.shape[0], -(-b // 32)
     rows = e * b * d * 4 * (1 + (tt is not None)) + groups * e * (d + a) * 4
-    if kind != "static":
-        return moved + rows, 0
-    pad = torch.zeros(e, groups * 32, dtype=torch.bool, device=vis.device)
-    pad[:, :b] = vis[tsrc.long()]
-    steps = int(pad.view(e, groups, 32).any(-1).sum())  # (edge, group) kept
     kd, ka = -(-d // 8) * 8, (8 if a <= 8 else 32 if a <= 32 else 64)
+    if kind != "static":  # the instance's width: 8, 16, 24, 32, 48, 64
+        kd = min(w for w in (8, 16, 24, 32, 48, 64) if w >= d)
+        if kd > tc_walk_widths():
+            return moved + rows, 0
+    pad = torch.zeros(e, groups * 32, dtype=torch.bool, device=vis.device)
+    pad[:, :b] = keep
+    steps = int(pad.view(e, groups, 32).any(-1).sum())  # (edge, group) kept
     md = -(-d // 16) * 16
-    flops = 3 * steps * (2 * 32 * kd * ka * 2 + 2 * md * ka * 32)
+    flops = 3 * steps * (2 * 32 * kd * ka * 2 + 2 * md * ka * 32) * (a > 0)
+    if kind != "static" and args[20] is not None:
+        ttime, ttail, times = args[8], args[9], args[12]
+        tl = ttail.long()
+        direction = torch.sign(ttime[:, None] - times[None, :]).long() + 1
+        q = torch.arange(b, device=tl.device)[None, :].expand(e, b)
+        key = (tl[:, None] * groups + q // 32) * 3 + direction
+        triples = int(torch.unique(key[keep]).numel())
+        del direction, q, key
+        flops += 3 * triples * (2 * 32 * kd * kd + 2 * md * 32 * kd)
     return moved + rows, flops
 
 
@@ -3513,10 +3592,13 @@ def dense_bwd_call_check(kind, hop, args, graph, what: str, card):
     share, err, shares = bwd_float64_check(kind, args, got, what)
     tables = ("not planned" if "tables" not in plan
               else "staged" if plan["tables"] else "global")
+    groups = -(-(args[1] if kind == "static" else args[3]).shape[1] // 32)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = plan["blocks_x"] * groups * plan["warps"] / n_sm
     log(f"{what} 7j {kind} backward plan: {plan['warps']} warps a block, "
-        f"{plan['blocks_x']} blocks a query group, "
+        f"{plan['blocks_x']} blocks a query group ({groups} groups), "
         f"{plan.get('per_sm', 'not planned')} warps a multiprocessor "
-        f"(what the grid gets), "
+        f"resident, {grid:.2f} the grid's warps a multiprocessor, "
         f"relation tables {tables}, {plan.get('split', 1)} units an item, "
         f"chain {plan['chain']}")
     n, b, d = (args[1] if kind == "static" else args[3]).shape

@@ -43,7 +43,8 @@
 // tile, the accumulator's layout, which is also an A operand once the
 // contraction index of a tile is read in the order 0, 2, 4, 6, 1, 3, 5, 7
 // (the weights' B fragments are staged in that order, split, once a
-// block). Every per-query term (the logit, alpha, G . m, d_m) is computed
+// block; the 3xTF32 pieces and the layout's helpers: mma_tf32.cuh, shared
+// with the temporal walk). Every per-query term (the logit, alpha, G . m, d_m) is computed
 // in that layout, its sums over a query's columns finished by two
 // shuffles within the lane's quad. The contraction over the queries needs
 // them as its K index: hs and dpre are staged once a step in the warp's
@@ -72,14 +73,15 @@
 #pragma once
 
 #include <mutex>
-#include <utility>
 #include <vector>
 
 #include "dense_hop.cuh"
+#include "mma_tf32.cuh"
 
 namespace static_bwd {
 
 using namespace dense_hop;
+using namespace tc;
 
 constexpr int kMaxWarps = 4;  // warps a block at most
 constexpr int kSplit = 8;     // units an item
@@ -112,20 +114,6 @@ struct Bwd {
 
 __host__ __device__ inline int round4(long long n) {
   return (int)((n + 3) / 4 * 4);
-}
-
-// The stride of a (32, w) block staged in shared memory, w a multiple of
-// 8: w itself where w % 32 is 8 or 24 (rows fall 8 banks apart), w + 8
-// where it is 16; a multiple of 32 stays and its columns are swizzled
-// (column c of row q at c ^ 8 (q % 4)). Either way the warp's stores of
-// (row l/4 + 8r, columns 8n + 2(l%4) + {0,1}) and its fragment loads
-// (rows 8k + l%4 (+4), column 8n + l/4) hit 32 different banks.
-__host__ __device__ __forceinline__ int stage_stride(int w) {
-  return w % 32 == 16 ? w + 8 : w;
-}
-
-__host__ __device__ __forceinline__ int sidx(int q, int c, int w) {
-  return q * stage_stride(w) + (w % 32 == 0 ? (c ^ ((q & 3) << 3)) : c);
 }
 
 // floats of a warp's parameter sums: d Ws^T [d][A], d w_alpha [A], d
@@ -172,136 +160,6 @@ __host__ __device__ inline Offsets offsets(int kd, int ka, int n_acc) {
   return o;
 }
 
-// ---------------------------------------------------- 3xTF32 on mma.sync
-
-// x rounded to TF32 (10 stored bits), to nearest, ties away from zero, as
-// cvt.rna.tf32.f32 rounds a finite x; sm_90 has no instruction for that
-// conversion (it takes ~10), this is two. The tensor cores read a TF32
-// operand's top 19 bits.
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small to ~2^-22 of |x|, both TF32
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = tf32(x);
-  small = tf32(x - __uint_as_float(big));
-}
-
-// c += a b: one m16n8k8 tile, TF32 in, float32 accumulation
-__device__ __forceinline__ void mma8(float (&c)[4], const uint32_t (&a)[4],
-                                     uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d = a b: one m16n8k8 tile into a fresh accumulator (a zero C operand)
-__device__ __forceinline__ void mma8z(float (&d)[4], const uint32_t (&a)[4],
-                                      uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f));
-}
-
-// c += a b in 3xTF32 (b = (big0, big1, small0, small1)): the small
-// products, then big.big, in c itself. The tensor cores truncate their
-// sums: a running accumulator carries each k-step's truncation, ~2^-23 of
-// its value a step; the parameters' sums and d_hs take it (their checks:
-// the chain of additions and their scale, and sum|x| of a pair's d Ws
-// terms).
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], uint4 b) {
-  mma8(c, as, b.x, b.y);
-  mma8(c, ab, b.z, b.w);
-  mma8(c, ab, b.x, b.y);
-}
-
-// The same through a fresh accumulator that a float32 add (rounded to
-// nearest) takes into c: the truncation stays within the k-step's 8
-// products. The attention's pre-activation takes it (alpha's relative
-// error reaches every gradient of the pair).
-__device__ __forceinline__ void mma3f(float (&c)[4], const uint32_t (&ab)[4],
-                                      const uint32_t (&as)[4], uint4 b) {
-  float t[4];
-  mma8z(t, as, b.x, b.y);
-  mma8(t, ab, b.z, b.w);
-  mma8(t, ab, b.x, b.y);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += t[i];
-}
-
-// alpha = sigmoid(x) and beta = sigmoid(-x) = 1 - alpha, each to a few ulps
-// (no cancellation): one exp and one division
-__device__ __forceinline__ void sigmoid_pair(float x, float& alpha,
-                                             float& beta) {
-  const float z = expf(-fabsf(x));  // (0, 1]
-  const float s = 1.f / (1.f + z);  // sigmoid(|x|)
-  const float o = z * s;            // sigmoid(-|x|)
-  alpha = x >= 0.f ? s : o;
-  beta = x >= 0.f ? o : s;
-}
-
-// The A fragment of rows (queries) 16 mt + l/4 (+8) and contraction
-// columns 8 k + 2 (l%4) + {0, 1} from a lane's [query r][column pair]
-// registers, split.
-template <int C>
-__device__ __forceinline__ void a_frag(const float (&x)[4][C], int mt, int k,
-                                       uint32_t (&ab)[4], uint32_t (&as)[4]) {
-  split(x[2 * mt][2 * k], ab[0], as[0]);
-  split(x[2 * mt + 1][2 * k], ab[1], as[1]);
-  split(x[2 * mt][2 * k + 1], ab[2], as[2]);
-  split(x[2 * mt + 1][2 * k + 1], ab[3], as[3]);
-}
-
-// ------------------------------------------------------- rows by pairs
-
-// row[c], row[c + 1] as float (0 from n on); vec: n even and the row's
-// pairs aligned (8 bytes float, 4 bytes bf16). Shared or global memory.
-template <typename T>
-__device__ __forceinline__ float2 ld2(const T* row, int c, int n, bool vec) {
-  float2 v = make_float2(0.f, 0.f);
-  if (c < n) {
-    if (vec) {
-      if constexpr (sizeof(T) == 4) {
-        v = *reinterpret_cast<const float2*>(row + c);
-      } else {
-        v = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(row + c));
-      }
-    } else {
-      v.x = to_f32(row[c]);
-      if (c + 1 < n) v.y = to_f32(row[c + 1]);
-    }
-  }
-  return v;
-}
-
-// the same from a float or bf16 table (bf16 at run time)
-__device__ __forceinline__ float2 ld2t(const void* row, int c, int n,
-                                       bool vec, bool bf16) {
-  return bf16 ? ld2(reinterpret_cast<const __nv_bfloat16*>(row), c, n, vec)
-              : ld2(reinterpret_cast<const float*>(row), c, n, vec);
-}
-
-// row[c], row[c + 1] = x, y (up to n), evict-first (the rows are read
-// back only by list_sum, after the walk)
-__device__ __forceinline__ void st2(float* row, int c, int n, bool vec,
-                                    float x, float y) {
-  if (c < n) {
-    if (vec) {
-      __stcs(reinterpret_cast<float2*>(row + c), make_float2(x, y));
-    } else {
-      row[c] = x;
-      if (c + 1 < n) row[c + 1] = y;
-    }
-  }
-}
-
 // The tail's cotangent rows for the lane's four queries, its columns (0
 // from d on and for queries past b).
 template <int CD>
@@ -320,22 +178,6 @@ __device__ __forceinline__ void load_g(const Bwd& t, int b, int d, int v,
       G[r][2 * n] = gv.x;
       G[r][2 * n + 1] = gv.y;
     }
-}
-
-// v summed over the eight lanes of the lane's column group (l % 4), a
-// fixed tree
-__device__ __forceinline__ float sum_groups(float v) {
-  v += __shfl_xor_sync(kFull, v, 4);
-  v += __shfl_xor_sync(kFull, v, 8);
-  v += __shfl_xor_sync(kFull, v, 16);
-  return v;
-}
-
-// v summed over the lane's quad (its query's four column lanes)
-__device__ __forceinline__ float sum_quad(float v) {
-  v += __shfl_xor_sync(kFull, v, 1);
-  v += __shfl_xor_sync(kFull, v, 2);
-  return v;
 }
 
 // up to width 32, at most 168 registers a thread: three blocks a
@@ -841,20 +683,6 @@ struct Plan {
 // device's multiprocessors, and the instance's blocks a multiprocessor at
 // (warps, shared bytes) on it (its shared memory limit raised first); 0
 // where the runtime failed (not kept). A plan is then arithmetic.
-inline int sm_count(int dev) {
-  static std::mutex mu;
-  static std::vector<std::pair<int, int>> memo;
-  const std::lock_guard<std::mutex> lock(mu);
-  for (const auto& e : memo)
-    if (e.first == dev) return e.second;
-  int sms = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-      cudaSuccess)
-    return 0;
-  memo.emplace_back(dev, sms);
-  return sms;
-}
-
 template <int KD, int KA>
 int blocks_per_sm(int dev, int w, size_t smem) {
   struct Entry {
@@ -963,11 +791,6 @@ int launch(const Walk& p, Bwd t, const Plan& pl, cudaStream_t stream) {
       t.partial, t.out, pl.groups, pl.blocks_x, pl.n_acc, pl.pc, t.A, p.b);
   return (int)cudaGetLastError();
 }
-
-template <int V>
-struct Int {
-  static constexpr int value = V;
-};
 
 // fn(Int<KD>, Int<KA>) for the instance of the hidden width d (8, 16, 24,
 // 32, 48, 64) and the attention width A (8, 32, 64)

@@ -6,11 +6,12 @@
 // sums and what bounds them: dense_hop_bwd.cuh. This file is its entry
 // point for the temporal model: the cotangent of h is taken back through
 // the visited mask, the activation (its derivative from h alone) and the
-// dropout mask once per (tail, query) at the start of an item; the
-// ablation switches (use_time, use_attention, the linear or bias
-// direction transform) are run-time flags, one instance a width (8, 16,
-// 20, 24, 32, 48, 64), which keeps nvcc's time down. The direction
-// transform stays per (edge, query), as in the forward.
+// dropout mask once per (tail, query) where a warp's walk reaches the
+// tail; the ablation switches (use_time, use_attention, the linear or bias
+// direction transform) are run-time flags, which keeps nvcc's time down:
+// one tensor-core instance a (hidden, attention) width pair (hidden 8, 16,
+// 24, 32 by attention 8, 32, 64), one scalar instance at hidden 48 and 64.
+// The direction transform stays per (edge, query), as in the forward.
 
 #include "dense_hop_bwd.cuh"
 
@@ -91,16 +92,21 @@ extern "C" int dense_hop_temporal_bwd(
   t.scratch = (float*)scratch;
   t.vec_h = d % 4 == 0 && (uintptr_t)hidden % 16 == 0;
   t.vec_t = d % 4 == 0 && (uintptr_t)tt % 16 == 0;
+  t.st16 = d % 4 == 0 && (uintptr_t)dhs % 16 == 0 &&
+           (uintptr_t)dmsg % 16 == 0;
+  t.vec_g = d % 2 == 0 && (uintptr_t)g % 8 == 0 && (uintptr_t)h % 8 == 0;
+  t.vec_w = d % 2 == 0 && (uintptr_t)wdir % 8 == 0;
   t.vec_r = d % 4 == 0 && (uintptr_t)rela % 16 == 0;
-  t.vec_g = d % 4 == 0 && (uintptr_t)g % 16 == 0;
+  t.vec_g4 = d % 4 == 0 && (uintptr_t)g % 16 == 0;
   t.vec_o = d % 4 == 0 && (uintptr_t)h % 16 == 0;
-  return by_width((int)d, p, t, items, (cudaStream_t)stream);
+  return run(p, t, items, (cudaStream_t)stream);
 }
 
-// The launch's plan for these shapes (dense_hop_bwd.cuh:make_plan):
-// out[0..6) = the floats of out, partial and scratch, the warps a block,
-// the blocks a query group, and the most additions a term of a parameter
-// sum passes through. Returns a cudaError_t.
+// The launch's plan for these shapes (dense_hop_bwd.cuh:plan_of): out[0..9)
+// = the floats of out, partial and scratch, the warps a block, the blocks a
+// query group, the most additions a term of a parameter sum passes
+// through, the warps a multiprocessor, the relation tables staged (1 or 0)
+// and the units an item. Returns a cudaError_t.
 extern "C" int dense_hop_temporal_bwd_plan(long long b, long long d,
                                            long long a, long long chunk,
                                            long long items, long long n_rel,
@@ -115,7 +121,6 @@ extern "C" int dense_hop_temporal_bwd_plan(long long b, long long d,
   }
   const int f = (use_time ? kTime : 0) | (use_attn ? kAttn : 0) |
                 (linear ? kLinear : 0);
-  return write_plan(make_plan((int)d, f, use_attn ? (int)a : 0, (int)n_rel,
-                              (int)b, items, (int)chunk),
-                    out);
+  return plan_of((int)d, f, use_attn ? (int)a : 0, (int)n_rel, (int)b, items,
+                 (int)chunk, out);
 }

@@ -765,32 +765,31 @@ def bwd_bound(got, want, s_abs, m, plain, kinks=None) -> float:
                                               kinks) if x is not None])
 
 
-PLAN_KEYS = ("out", "partial", "scratch", "warps", "blocks_x", "chain")
-# the static kernel's plan gives three more
-STATIC_PLAN_KEYS = PLAN_KEYS + ("per_sm", "tables", "split")
+PLAN_KEYS = ("out", "partial", "scratch", "warps", "blocks_x", "chain",
+             "per_sm", "tables", "split")
 
 
 def _bwd_plan(name: str, *shape) -> dict:
     """The backward kernel's launch plan for ``shape`` (the C entry
-    ``<name>_plan``, the ``make_plan`` of csrc/dense_hop_static_bwd.cuh or
-    csrc/dense_hop_bwd.cuh, the one the launch itself follows): the floats
+    ``<name>_plan``: the ``make_plan`` of csrc/dense_hop_static_bwd.cuh or
+    the ``plan_of`` of csrc/dense_hop_bwd.cuh, the one the launch itself
+    follows): the floats
     of its parameters' sums, its blocks' partial sums and its warps'
     scratch, its warps a block and blocks a query group, and ``chain``, the
     most float32 additions that a term of a parameter sum passes through
-    (`bwd_term_counts`); the static kernel's also the warps a
-    multiprocessor holds, whether the relation tables are staged in shared
-    memory (1 or 0) and the units an item of the plan is cut into."""
+    (`bwd_term_counts`), the warps a multiprocessor holds, whether the
+    relation tables are staged in shared memory (1 or 0) and the units an
+    item of the plan is cut into."""
     i64 = ctypes.c_longlong
     fn = _build.entry(name, f"{name}_plan",
                       [i64] * 6 + [ctypes.c_int] * (len(shape) - 6)
                       + [ctypes.POINTER(i64)])
-    keys = STATIC_PLAN_KEYS if name == "dense_hop_static_bwd" else PLAN_KEYS
-    out = (i64 * len(keys))()
+    out = (i64 * len(PLAN_KEYS))()
     err = fn(*shape, out)
     if err != 0:
         raise RuntimeError(f"{name}: no launch plan for {shape}: cudaError "
                            f"{err}")
-    return dict(zip(keys, out))
+    return dict(zip(PLAN_KEYS, out))
 
 
 def _bwd_buffers(e, b, d, a, dev, dmsg: bool, plan: dict):

@@ -1345,6 +1345,13 @@ DENSE_TEMPORAL_CASES = {
     # ICEWS14's widths with a second query group of one lane
     "icews14_b33": (2_000, 33, 20, 30, 30_000, "zipf", True, True, True,
                     True, "idd", 0.5),
+    # the backward's tile edges: one attention column past an mma tile (A
+    # = 33 padded to 64 at width 24, the tensor-core walk), and a width
+    # padded to 48 with one attention tile (the scalar walk above width 32)
+    "tile_d24_a33": (300, 32, 24, 33, 6_000, "zipf", True, True, True, True,
+                     "tanh", 0.5),
+    "tile_d40_a8": (300, 20, 40, 8, 6_000, False, True, True, True, False,
+                    "relu", 0.5),
 }
 
 
@@ -1593,9 +1600,10 @@ def test_dense_hop_temporal_bwd_kernel_one_kept_pair(card, case):
 def test_dense_hop_temporal_bwd_kernel_three_directions(card, case):
     """The temporal backward where every lane's items hold edges of all
     three directions: every query at time 100, the edges' times cycling
-    99, 100, 101 along the table (each direction's W G and M of an item
-    used; W G in registers at width 20, in shared memory at 48 and 64;
-    the bias form's S)."""
+    99, 100, 101 along the table (each direction's W G and M of a tail
+    used: at width 20 the tensor-core walk's, W G in the warp's shared
+    memory and M in its global scratch; at 48 and 64 the scalar walk's, both
+    in its global scratch; the bias form's S)."""
     inp = _temporal_hop_inputs(card, case)
     e, b = inp["ttime"].shape[0], inp["times"].shape[0]
     inp["times"] = torch.full((b,), 100, dtype=torch.int32, device=card)
